@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (mirrors pytorch_distributed_tpu/ops)."""

@@ -1,0 +1,1 @@
+"""parallel of the PyTorch port (mirrors pytorch_distributed_tpu/parallel)."""

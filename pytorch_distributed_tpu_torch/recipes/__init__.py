@@ -1,0 +1,1 @@
+"""recipes of the PyTorch port (mirrors pytorch_distributed_tpu/recipes)."""

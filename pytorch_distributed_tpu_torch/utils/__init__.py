@@ -1,0 +1,1 @@
+"""utils of the PyTorch port (mirrors pytorch_distributed_tpu/utils)."""
