@@ -6,15 +6,21 @@ compute dtype.  The numerics follow the flax modules:
 
 - LayerNorm uses eps 1e-6 and runs in f32;
 - GELU is the tanh approximation (flax ``nn.gelu``'s default);
-- Dense and embedding layers compute in the module dtype; their weights are
-  kept in that dtype (flax keeps f32 params and casts them at every use,
-  which gives the same values without a cast per decode step);
+- Dense and embedding layers compute in the module dtype ``dtype``; their
+  weights are kept in ``param_dtype`` and cast to ``dtype`` at each use, as
+  flax does.  ``param_dtype`` defaults to ``dtype`` (serving: no cast per
+  decode step, the same values); the trainer keeps f32 weights, so SGD
+  updates an f32 master copy as the JAX step does;
 - the residual stream stays in the module dtype;
 - the tied head multiplies in the module dtype and returns f32 logits.
 
-This slice ports the single-device dense path and the KV-cached decode path
-with flash prefill.  MoE, ring / all-to-all sequence parallelism, remat and
-int8 weights are still to port.
+``attn_impl`` ("auto" | "flash" | "dense") picks the attention of the
+no-cache forward, as the JAX module's field does; flash goes through
+``flash_attention_fn``, which carries attention's gradient (K2, K3).
+
+The single-device dense and flash paths and the KV-cached decode path with
+flash prefill are ported.  MoE, ring / all-to-all sequence parallelism,
+remat and int8 weights are still to port.
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_distributed_tpu_torch.ops.flash_attention import (
+    ATTN_IMPLS,
     flash_attention,
+    flash_attention_fn,
     flash_attention_reference,
     pick_attention_impl,
 )
@@ -36,6 +44,13 @@ from pytorch_distributed_tpu_torch.parallel.ring import dense_attention
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense`` with ``dtype``: input, kernel and bias cast to the
+    compute dtype at use (no-ops when the weights are kept in it)."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 def rope(x: torch.Tensor, base: float = 10000.0, offset: int = 0) -> torch.Tensor:
@@ -66,31 +81,33 @@ class KVCache:
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, dtype=torch.float32,
-                 device=None):
+    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
+                 device, param_dtype: torch.dtype, attn_impl: str):
         super().__init__()
         self.n_heads = n_heads
-        self.qkv = nn.Linear(d_model, 3 * d_model, bias=False, dtype=dtype,
-                             device=device)
-        self.proj = nn.Linear(d_model, d_model, bias=False, dtype=dtype,
+        self.dtype = dtype
+        self.attn_impl = attn_impl
+        self.qkv = nn.Linear(d_model, 3 * d_model, bias=False,
+                             dtype=param_dtype, device=device)
+        self.proj = nn.Linear(d_model, d_model, bias=False, dtype=param_dtype,
                               device=device)
 
     def forward(self, x: torch.Tensor, cache: Optional[KVCache] = None,
                 flash_prefill: bool = False) -> torch.Tensor:
         B, L, C = x.shape
         D = C // self.n_heads
-        qkv = self.qkv(x.to(self.qkv.weight.dtype))
+        qkv = dense(self.qkv, x, self.dtype)
         # Contiguous thirds q | k | v, each viewed as [B, L, H, D] in place.
         q, k, v = (t.view(B, L, self.n_heads, D) for t in qkv.split(C, dim=-1))
         if cache is not None:
             out = self._decode_attend(q, k, v, cache, flash_prefill)
         else:
             q, k = rope(q), rope(k)
-            if pick_attention_impl(L, D, x.device) == "flash":
-                out = flash_attention(q, k, v, True)[0]
+            if pick_attention_impl(L, D, x.device, self.attn_impl) == "flash":
+                out = flash_attention_fn(q, k, v, True)
             else:
                 out = dense_attention(q, k, v, causal=True)
-        return self.proj(out.reshape(B, L, C))
+        return dense(self.proj, out.reshape(B, L, C), self.dtype)
 
     def _decode_attend(self, q, k, v, cache: KVCache, flash_prefill: bool):
         """KV-cached attention: the new tokens' k/v land in the cache at the
@@ -119,20 +136,24 @@ class SelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, dtype=torch.float32,
-                 device=None):
+    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
+                 device, param_dtype: torch.dtype, attn_impl: str):
         super().__init__()
+        self.dtype = dtype
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.attn = SelfAttention(d_model, n_heads, dtype, device)
+        self.attn = SelfAttention(d_model, n_heads, dtype, device, param_dtype,
+                                  attn_impl)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.fc1 = nn.Linear(d_model, 4 * d_model, dtype=dtype, device=device)
-        self.fc2 = nn.Linear(4 * d_model, d_model, dtype=dtype, device=device)
+        self.fc1 = nn.Linear(d_model, 4 * d_model, dtype=param_dtype,
+                             device=device)
+        self.fc2 = nn.Linear(4 * d_model, d_model, dtype=param_dtype,
+                             device=device)
 
     def forward(self, x: torch.Tensor, cache: Optional[KVCache] = None,
                 flash_prefill: bool = False) -> torch.Tensor:
         x = x + self.attn(self.ln1(x.float()), cache, flash_prefill)
-        h = self.fc1(self.ln2(x.float()).to(self.fc1.weight.dtype))
-        return x + self.fc2(F.gelu(h, approximate="tanh"))
+        h = dense(self.fc1, self.ln2(x.float()), self.dtype)
+        return x + dense(self.fc2, F.gelu(h, approximate="tanh"), self.dtype)
 
 
 class TransformerLM(nn.Module):
@@ -145,15 +166,19 @@ class TransformerLM(nn.Module):
 
     def __init__(self, vocab_size: int = 32000, d_model: int = 512,
                  n_heads: int = 8, n_layers: int = 8, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", param_dtype=None, attn_impl: str = "auto"):
         super().__init__()
         device = resolve_device(device)
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
         self.dtype = dtype
+        param_dtype = param_dtype or dtype
         self.n_heads = n_heads
         self.head_dim = d_model // n_heads
-        self.embed = nn.Embedding(vocab_size, d_model, dtype=dtype, device=device)
+        self.embed = nn.Embedding(vocab_size, d_model, dtype=param_dtype,
+                                  device=device)
         self.blocks = nn.ModuleList(
-            Block(d_model, n_heads, dtype, device)
+            Block(d_model, n_heads, dtype, device, param_dtype, attn_impl)
             for _ in range(n_layers))
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
 
@@ -166,12 +191,12 @@ class TransformerLM(nn.Module):
                 flash_prefill: bool = False) -> torch.Tensor:
         if cache is not None and len(cache) != len(self.blocks):
             raise ValueError(f"{len(cache)} caches for {len(self.blocks)} blocks")
-        x = self.embed(tokens)
+        x = self.embed(tokens).to(self.dtype)
         for i, blk in enumerate(self.blocks):
             x = blk(x, None if cache is None else cache[i], flash_prefill)
         x = self.ln_f(x.float())
         # Tied head, multiplied in the module dtype like flax's embed.attend.
-        return (x.to(self.dtype) @ self.embed.weight.T).float()
+        return (x.to(self.dtype) @ self.embed.weight.to(self.dtype).T).float()
 
     def new_cache(self, batch: int, max_len: int) -> List[KVCache]:
         """Zeroed per-layer caches at index 0."""
