@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving and training paths on one NVIDIA H100 and check them.
+"""Run the PyTorch port's serving, LM training and image training paths on one
+NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -27,7 +28,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    layer, every eval batch K1 once per layer, and every loss be finite;
 7. one training step's loss and gradients at full width, 2 layers, B=1,
    L=4096, f32, through the kernels and through dense attention: they must
-   agree.
+   agree;
+8. hold the fused conv -> BN backward kernels (K4 1x1, K5 3x3) against
+   their plain version at the ResNet-50 b256 bf16 shapes with the most
+   bytes (K4: stage 1, 256->64 and 64->256; K5: the 56x56x64 and 7x7x512
+   planes) and at ragged f32 shapes (relu on and off), and time each
+   kernel, the plain version and cuDNN's convolution backward after dy
+   formed in PyTorch (a yardstick only: the port never calls it);
+9. drive the image training path through ``recipes.tpu_native`` with
+   ``-a resnet50 --synthetic --fused-convbn -b 256 --image-size 224``, bf16,
+   for 8 train steps and 1 eval batch of 204 samples padded to 256: every
+   step must launch K4 33 times and K5 13 times, eval neither, and every
+   loss be finite;
+10. one f32 training step (TF32 off) of ResNet-50 at batch 8, fused and
+    unfused, from the same weights: loss, every gradient and the updated
+    running statistics must agree.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
@@ -44,9 +59,19 @@ import time
 import torch
 import torch.nn.functional as F
 
+from pytorch_distributed_tpu_torch import models
 from pytorch_distributed_tpu_torch.models.generate import generate, greedy_generate
 from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
 from pytorch_distributed_tpu_torch.ops import _build
+from pytorch_distributed_tpu_torch.ops.fused_bn import _stats
+from pytorch_distributed_tpu_torch.ops.fused_conv_bn import (
+    _dy,
+    bn_bwd_vectors,
+    fused_dgrad_wgrad,
+    fused_dgrad_wgrad_3x3,
+    fused_dgrad_wgrad_3x3_reference,
+    fused_dgrad_wgrad_reference,
+)
 from pytorch_distributed_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd_dkv,
@@ -54,8 +79,10 @@ from pytorch_distributed_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_reference,
 )
-from pytorch_distributed_tpu_torch.recipes import lm_generate, lm_pretrain
+from pytorch_distributed_tpu_torch.recipes import lm_generate, lm_pretrain, tpu_native
 from pytorch_distributed_tpu_torch.train.lm import lm_loss
+from pytorch_distributed_tpu_torch.train.optim import sgd
+from pytorch_distributed_tpu_torch.train.steps import make_train_step
 
 
 def _ms(fn, iters, warmup=2):
@@ -102,6 +129,18 @@ def _bwd_bounds(B, L, H, D, causal, bf16):
             _roofline_ms(8 * D * pairs, reads + 2 * B * L * H * D * es, bf16))
 
 
+def _conv_bn_bwd_bound(ks, N, H, W, Ci, Co, bf16):
+    """Least time of K4 (ks=1) or K5 (ks=3): 2 FLOP per multiply-add of
+    dgrad and of wgrad over the (pixel, tap) pairs inside the image; y, do,
+    a and the compute-dtype weight read once, the f32 vectors read once, da
+    and the f32 dW written once."""
+    pairs = N * (3 * H - 2) * (3 * W - 2) if ks == 3 else N * H * W
+    es = 2 if bf16 else 4
+    M = N * H * W
+    nbytes = (M * (2 * Co + 2 * Ci) * es + ks * ks * Ci * Co * (es + 4) + 4 * Co * 4)
+    return _roofline_ms(4 * pairs * Ci * Co, nbytes, bf16)
+
+
 def _agree(got, want, atol_frac, rtol):
     """(max abs error, |got - want| <= atol_frac * max|want| + rtol * |want|)."""
     got, want = got.float(), want.float()
@@ -119,6 +158,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # 1. build
     t0 = time.perf_counter()
@@ -368,6 +408,157 @@ def main() -> int:
     if not (loss_err <= 1e-5 and all(r <= 1e-3 for r in rel.values())):
         raise SystemExit("flash and dense training gradients disagree")
 
+    # 8. K4, K5 vs their plain version.  Inputs are random; s, t, u, v come
+    # from bn_bwd_vectors on the batch statistics of y, as on the path, so
+    # the ReLU mask is live.  Tolerances: dy is formed with the same
+    # roundings on both sides and the products differ in summation order
+    # only, so a bf16 da may round one ulp (2^-8 relative) apart: rtol 1e-2,
+    # atol 1e-3 of max|ref| for entries near zero; dW is f32 on both sides,
+    # sums of up to 802,816 terms in another order: atol 1e-4 of max|ref|,
+    # rtol 1e-3.  f32 ragged shapes: atol 1e-5 of max|ref|, rtol 1e-4.
+    bf16 = torch.bfloat16
+    conv_cases = [
+        dict(name="k4_path", ks=1, N=256, H=56, W=56, Ci=256, Co=64, dtype=bf16, relu=True),
+        dict(name="k4_64_256", ks=1, N=256, H=56, W=56, Ci=64, Co=256, dtype=bf16,
+             relu=False),
+        dict(name="k5_path", ks=3, N=256, H=56, W=56, Ci=64, Co=64, dtype=bf16, relu=True),
+        dict(name="k5_7x7_512", ks=3, N=256, H=7, W=7, Ci=512, Co=512, dtype=bf16,
+             relu=True),
+        dict(name="k4_ragged_relu", ks=1, N=3, H=9, W=11, Ci=70, Co=33,
+             dtype=torch.float32, relu=True),
+        dict(name="k4_ragged", ks=1, N=3, H=9, W=11, Ci=70, Co=33,
+             dtype=torch.float32, relu=False),
+        dict(name="k5_ragged_relu", ks=3, N=3, H=9, W=11, Ci=70, Co=33,
+             dtype=torch.float32, relu=True),
+        dict(name="k5_ragged", ks=3, N=3, H=9, W=11, Ci=70, Co=33,
+             dtype=torch.float32, relu=False),
+    ]
+    conv = {}
+    for c in conv_cases:
+        ks, N, H, W, Ci, Co, dt, relu = (c[k] for k in ("ks", "N", "H", "W", "Ci", "Co",
+                                                       "dtype", "relu"))
+        y = torch.randn(N, H, W, Co, device=dev, generator=gen).to(dt)
+        do = torch.randn(N, H, W, Co, device=dev, generator=gen).to(dt)
+        a = torch.randn(N, H, W, Ci, device=dev, generator=gen).to(dt)
+        w = torch.randn(Co, Ci, ks, ks, device=dev, generator=gen) / math.sqrt(Ci * ks * ks)
+        gamma = 1.0 + 0.1 * torch.randn(Co, device=dev, generator=gen)
+        beta = 0.1 * torch.randn(Co, device=dev, generator=gen)
+        mu, var = _stats(y)
+        s, t, u, v, _, _ = bn_bwd_vectors(y, do, mu, torch.rsqrt(var + 1e-5), gamma, beta,
+                                          relu)
+        kernel, plain = ((fused_dgrad_wgrad, fused_dgrad_wgrad_reference) if ks == 1 else
+                         (fused_dgrad_wgrad_3x3, fused_dgrad_wgrad_3x3_reference))
+        args = (y, do, a, w, s, t, u, v, relu)
+        da, dw = kernel(*args)
+        torch.cuda.synchronize()
+        rda, rdw = plain(*args)
+        atol, rtol = ((1e-3, 1e-2) if dt == bf16 else (1e-5, 1e-4))
+        e_da, ok_da = _agree(da, rda, atol, rtol)
+        e_dw, ok_dw = _agree(dw, rdw, 1e-4 if dt == bf16 else 1e-5, 1e-3 if dt == bf16 else 1e-4)
+        del da, dw, rda, rdw
+        ms = _ms(lambda: kernel(*args), 20)
+        plain_ms = _ms(lambda: plain(*args), 20)
+        wc = w.to(dt)
+        a_nchw = a.permute(0, 3, 1, 2)
+
+        def library():
+            dy = _dy(y, do, s, t, u, v, relu, dt).permute(0, 3, 1, 2)
+            torch.ops.aten.convolution_backward(dy, a_nchw, wc, None, [1, 1], [ks // 2] * 2,
+                                                [1, 1], False, [0, 0], 1,
+                                                [True, True, False])
+
+        lib_ms = _ms(library, 20)
+        bound, bound_by = _conv_bn_bwd_bound(ks, N, H, W, Ci, Co, dt == bf16)
+        conv[c["name"]] = dict(err=max(e_da, e_dw), ms=ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+        print(f"[conv-bn kernel] {c['name']} K{4 if ks == 1 else 5} N={N} H={H} W={W} "
+              f"Ci={Ci} Co={Co} {dt} relu={relu}: max err da {e_da:.3e} dW {e_dw:.3e}; "
+              f"kernel {ms} ms, plain {plain_ms} ms, dy + cuDNN backward {lib_ms} ms, "
+              f"bound {bound} ms ({bound_by})")
+        if not (ok_da and ok_dw):
+            raise SystemExit(f"fused conv-BN kernel disagrees with its plain version at "
+                             f"{c['name']}")
+        del y, do, a, w, wc, a_nchw, args
+    torch.cuda.empty_cache()
+
+    # 9. the image training path at full ResNet-50 width, through the recipe
+    steps, per_step = 8, (33, 13)
+    fused_dgrad_wgrad.launches = fused_dgrad_wgrad_3x3.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    image = tpu_native.run([
+        "-a", "resnet50", "--synthetic", "--fused-convbn", "-b", "256", "--image-size", "224",
+        "--synthetic-length", str(256 * steps), "--epochs", "1", "--precision", "bf16",
+        "--seed", "0", "-p", "1", "--epoch-csv", "build/tpu_native_smoke.csv",
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    image_launches = (fused_dgrad_wgrad.launches, fused_dgrad_wgrad_3x3.launches)
+    want = (per_step[0] * steps, per_step[1] * steps)
+    if image_launches != want or len(image.losses) != steps:
+        raise SystemExit(f"image training launched (K4, K5) {image_launches} times in "
+                         f"{len(image.losses)} steps and one eval batch, expected {want}")
+    # Eval alone, once more on the same trainer: no backward, so neither
+    # kernel may launch.
+    fused_dgrad_wgrad.launches = fused_dgrad_wgrad_3x3.launches = 0
+    image.validate()
+    torch.cuda.synchronize()
+    eval_launches = (fused_dgrad_wgrad.launches, fused_dgrad_wgrad_3x3.launches)
+    if eval_launches != (0, 0):
+        raise SystemExit(f"image eval launched (K4, K5) {eval_launches} times, expected none")
+    losses = [float(x) for x in image.losses]
+    eval_loss, acc1, acc5 = image.eval_history[0]
+    if not all(math.isfinite(x) for x in losses + [eval_loss]):
+        raise SystemExit(f"non-finite image training loss: {losses}, eval {eval_loss}")
+    step_ms = statistics.median(image.step_times[1:]) * 1e3
+    print(f"[image train] ResNet-50 --fused-convbn B=256 224x224 bf16 compute, f32 weights: "
+          f"step {step_ms} ms (median of steps 2-{steps}; all "
+          f"{[t * 1e3 for t in image.step_times]}), {256 / step_ms * 1e3} images/s; host "
+          f"wait for batches {image.feeder.wait_s} s over the run; max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30} GiB; losses {losses}; eval loss "
+          f"{eval_loss} Acc@1 {acc1} Acc@5 {acc5} over {len(image.val_loader)} batch of "
+          f"{len(image.val_set)} samples; launches K4/K5 {image_launches}; card {card}")
+    del image
+    torch.cuda.empty_cache()
+
+    # 10. fused vs unfused f32 training step on the same weights, TF32 off.
+    # The two differ in the conv backward's summation order only (~1e-7
+    # relative per product); through 53 conv -> BN layers each gradient
+    # must agree to 1e-3 of its largest entry, the loss to 1e-5 relative.
+    # The forward is the same code on both sides, so the running
+    # statistics must agree to 1e-6 of their largest entry.
+    pb = 8
+    pgen = torch.Generator(device=dev).manual_seed(3)
+    batch = {"images": torch.rand(pb, 224, 224, 3, device=dev, generator=pgen),
+             "labels": torch.randint(0, 1000, (pb,), device=dev, generator=pgen),
+             "weights": torch.tensor([1.0] * (pb - 2) + [0.0] * 2, device=dev)}
+    runs, weights = {}, None
+    for fused in (True, False):
+        model = models.create_model("resnet50", fused_convbn=fused, device=dev)
+        if weights is None:
+            model.init_weights(torch.Generator(device=dev).manual_seed(0))
+            weights = {k: t.clone() for k, t in model.state_dict().items()}
+        else:
+            model.load_state_dict(weights)
+        metrics = make_train_step(model, sgd(model.parameters(), 0.1))(batch, 0.1)
+        runs[fused] = (metrics["loss"].item(),
+                       {n: p.grad for n, p in model.named_parameters()},
+                       {n: b.clone() for n, b in model.named_buffers()})
+        del model
+    del weights
+    (lf, gf, bf), (lu, gu, bu) = runs[True], runs[False]
+    loss_err = abs(lf - lu) / abs(lu)
+    rel = {n: ((g - gu[n]).abs().max() / gu[n].abs().max().clamp_min(1e-30)).item()
+           for n, g in gf.items()}
+    stat_rel = max(((b - bu[n]).abs().max() / bu[n].abs().max()).item() for n, b in bf.items())
+    worst = max(rel, key=rel.get)
+    print(f"[parity] f32 ResNet-50 train step fused vs unfused (B={pb}, 224x224, 2 padded "
+          f"slots): loss {lf} vs {lu} (rel err {loss_err:.3e}); worst gradient {worst} rel "
+          f"err {rel[worst]:.3e} (limit 1e-3 of its max); running statistics rel err "
+          f"{stat_rel:.3e} (limit 1e-6)")
+    if not (loss_err <= 1e-5 and all(r <= 1e-3 for r in rel.values()) and stat_rel <= 1e-6):
+        raise SystemExit("fused and unfused ResNet-50 training steps disagree")
+    del runs, gf, gu, bf, bu
+    torch.cuda.empty_cache()
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
@@ -386,6 +577,16 @@ def main() -> int:
             launches=n, max_abs_err=bpath[key]["err"], ms=bpath[key]["ms"],
             plain_ms=bpath["plain_ms"], bound_ms=bpath[key]["bound_ms"],
             bound_by=bpath[key]["bound_by"], library_ms=bpath["library_ms"]))
+    for name, key, line, n in (("fused_dgrad_wgrad", "k4_path", 122, image_launches[0]),
+                               ("fused_dgrad_wgrad_3x3", "k5_path", 210, image_launches[1])):
+        kp = conv[key]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="pytorch_distributed_tpu_torch/csrc/fused_conv_bn_bwd.cu",
+            replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
+            launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
+            bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
+    print(f"[time] phases 1-10 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

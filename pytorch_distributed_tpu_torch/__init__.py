@@ -12,5 +12,10 @@ Ported so far:
   prompt prefill;
 - single-device LM pretraining (``recipes/lm_pretrain.py`` →
   ``train/lm.py`` → ``models/transformer.py``) with the flash-attention
-  forward and backward kernels behind one autograd Function.
+  forward and backward kernels behind one autograd Function;
+- single-device ResNet training (``recipes/tpu_native.py`` →
+  ``train/trainer.py`` → ``train/steps.py`` → ``models/resnet.py``, with the
+  synthetic ``data/`` pipeline); under ``--fused-convbn`` the stride-1
+  conv → BatchNorm backward runs through the fused kernels K4 (1x1) and K5
+  (3x3) of ``ops/fused_conv_bn.py``.
 """

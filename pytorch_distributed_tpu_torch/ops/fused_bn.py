@@ -1,0 +1,152 @@
+"""BatchNorm(+ReLU) with a hand-written backward, the port of
+``pytorch_distributed_tpu/ops/fused_bn.py``.
+
+- Forward: one-pass batch statistics (mean and mean of squares, f32
+  accumulation over inputs of any dtype, the variance clamped at >= 0), then
+  ``o = (y * scale + shift)`` in f32, cast back to the input's dtype, and an
+  optional ReLU.
+- Backward (``_BNAct``, a ``torch.autograd.Function``): saves only the
+  pre-BN tensor and per-channel vectors; the ReLU mask is recomputed from
+  them (``gamma * xhat + beta > 0``).
+- ``FusedBatchNormAct``: the module, with torchvision's parameter and buffer
+  names (``weight``, ``bias``, ``running_mean``, ``running_var``).  Its
+  running statistics follow the JAX EMA, ``0.9 * old + 0.1 * var`` with the
+  *biased* one-pass variance.  ``nn.BatchNorm2d`` / ``F.batch_norm`` in
+  training mode are not used: they write the unbiased variance.
+
+Layout: channels last, ``[..., C]``, as in the JAX package; statistics
+reduce over every other axis.  Cross-replica statistics (``axis_name``,
+SyncBN) are not ported: ROADMAP.md item A19.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+SYNC_BN_ITEM = "A19 (--sync-bn: cross-replica BatchNorm statistics)"
+
+
+def _axes(y: torch.Tensor) -> Tuple[int, ...]:
+    return tuple(range(y.dim() - 1))
+
+
+def _stats(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-pass batch mean and variance over all but the channel axis, f32."""
+    axes = _axes(y)
+    yf = y.float()
+    mu = yf.mean(axes)
+    ms = (yf * yf).mean(axes)
+    # One-pass E[y^2] - mu^2 can go (numerically) negative under
+    # cancellation; clamp it as the JAX package does.
+    return mu, (ms - mu * mu).clamp_min(0.0)
+
+
+def bn_act_fwd(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+               relu: bool):
+    """``(o, mu, var, inv)``: the normalised (and rectified) output in y's
+    dtype, the batch statistics and ``inv = rsqrt(var + eps)``."""
+    mu, var = _stats(y)
+    inv = torch.rsqrt(var + eps)
+    scale = gamma * inv
+    shift = beta - mu * scale
+    o = (y.float() * scale + shift).to(y.dtype)
+    if relu:
+        o = torch.relu(o)
+    return o, mu, var, inv
+
+
+def bn_act_bwd(y, do, mu, inv, gamma, beta, relu: bool):
+    """``(dx, dgamma, dbeta)`` of ``bn_act_fwd``'s output cotangent ``do``,
+    through the batch statistics, in the dtypes of y, gamma and beta."""
+    axes = _axes(y)
+    n = y.numel() // y.shape[-1]
+    yf = y.float()
+    xhat = (yf - mu) * inv
+    dof = do.float()
+    if relu:
+        dof = torch.where(gamma * xhat + beta > 0, dof, 0.0)
+    dbeta = dof.sum(axes)
+    dgamma = (dof * xhat).sum(axes)
+    dx = (gamma * inv) * (dof - dbeta / n - xhat * (dgamma / n))
+    return dx.to(y.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+
+
+class _BNAct(torch.autograd.Function):
+    """``(o, mu, var)`` forward; the backward reads the saved pre-BN tensor
+    and per-channel vectors only.  mu and var carry no gradient (the EMA
+    update takes them outside the graph)."""
+
+    @staticmethod
+    def forward(ctx, y, gamma, beta, eps, relu):
+        o, mu, var, inv = bn_act_fwd(y, gamma, beta, eps, relu)
+        ctx.save_for_backward(y, mu, inv, gamma, beta)
+        ctx.relu = relu
+        ctx.mark_non_differentiable(mu, var)
+        return o, mu, var
+
+    @staticmethod
+    def backward(ctx, do, _dmu, _dvar):
+        y, mu, inv, gamma, beta = ctx.saved_tensors
+        return (*bn_act_bwd(y, do, mu, inv, gamma, beta, ctx.relu), None, None)
+
+
+def bn_act(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5,
+           relu: bool = False, axis_name: Optional[str] = None):
+    """``(o, mean, var)`` of the batch-normalised ``y [..., C]`` (+ReLU), the
+    JAX ``_bn_act``.  ``axis_name`` (SyncBN) raises: not ported."""
+    if axis_name is not None:
+        raise NotImplementedError(f"SyncBN is not ported: ROADMAP.md item {SYNC_BN_ITEM}")
+    return _BNAct.apply(y, gamma, beta, eps, relu)
+
+
+class FusedBatchNormAct(nn.Module):
+    """BatchNorm (+ optional ReLU) over ``[..., C]`` with the JAX module's
+    semantics: f32 parameters and statistics, the input's dtype for storage,
+    batch statistics in training mode (and the EMA ``momentum * old + (1 -
+    momentum) * new``, momentum 0.9), running statistics in eval mode.
+    ``zero_init`` starts the scale at 0 (a residual block's last BN)."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 relu: bool = False, zero_init: bool = False, device=None):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.relu = relu
+        self.zero_init = zero_init
+        f32 = dict(dtype=torch.float32, device=device)
+        self.weight = nn.Parameter(torch.full((features,), 0.0 if zero_init else 1.0, **f32))
+        self.bias = nn.Parameter(torch.zeros(features, **f32))
+        self.register_buffer("running_mean", torch.zeros(features, **f32))
+        self.register_buffer("running_var", torch.ones(features, **f32))
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        self.weight.fill_(0.0 if self.zero_init else 1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    @torch.no_grad()
+    def update_stats(self, mu: torch.Tensor, var: torch.Tensor) -> None:
+        """The JAX EMA: ``m * old + (1 - m) * batch`` (biased variance)."""
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mu)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+    def eval_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalise with the running statistics (eval mode)."""
+        inv = torch.rsqrt(self.running_var + self.eps)
+        scale = self.weight * inv
+        shift = self.bias - self.running_mean * scale
+        o = (x.float() * scale + shift).to(x.dtype)
+        return torch.relu(o) if self.relu else o
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return self.eval_forward(x)
+        o, mu, var = bn_act(x, self.weight, self.bias, self.eps, self.relu)
+        self.update_stats(mu, var)
+        return o

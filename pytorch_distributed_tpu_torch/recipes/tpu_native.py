@@ -1,0 +1,29 @@
+"""The canonical image recipe, the port of ``pytorch_distributed_tpu/recipes/tpu_native.py``
+on one CUDA card: bf16 compute with f32 weights, exact masked evaluation,
+batches prefetched to the card, the epoch CSV (default ``tpu_native.csv``).
+
+    python -m pytorch_distributed_tpu_torch.recipes.tpu_native -a resnet50 \\
+        --synthetic --fused-convbn -b 256 --epochs 1
+    python -m pytorch_distributed_tpu_torch.recipes.tpu_native --device cpu \\
+        -a resnet18 --synthetic --image-size 32 -b 8 --synthetic-length 32 --epochs 1
+
+``--fused-convbn`` runs the stride-1 conv -> BN backward through the
+hand-written kernels K4 (1x1) and K5 (3x3).
+"""
+
+from pytorch_distributed_tpu_torch.recipes._common import run_recipe
+
+
+def run(argv=None):
+    """Train as the recipe does; returns the trainer."""
+    return run_recipe("ImageNet Training on one CUDA card (canonical recipe)", argv,
+                      precision_default="bf16", epoch_csv_default="tpu_native.csv")
+
+
+def main(argv=None) -> float:
+    """Train as ``run`` does; returns the best top-1."""
+    return run(argv).best_acc1
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,260 @@
+"""CLI and config of the image recipes, the port of
+``pytorch_distributed_tpu/train/config.py``: the reference's flag surface
+(``--data -a -j --epochs --start-epoch -b --lr --momentum --wd -p -e
+--pretrained --seed``) and the JAX package's additions, as one dataclass,
+plus ``--device`` (default ``cuda``).
+
+Every flag is parsed.  ``check_ported`` exits naming the ROADMAP item that
+will port a flag whose value differs from its default and whose layer is
+not ported yet: the ImageFolder data path (A17), distribution (A18), SyncBN
+(A19), the gradient-communication stack (A9), checkpoints (A16), the fused
+CE head (A14), fault tolerance beyond the in-step ``--nan-guard`` gate
+(A11) and observability beyond the epoch CSV (A12).  The port's trainer
+saves no checkpoints.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional
+
+from pytorch_distributed_tpu_torch import models
+from pytorch_distributed_tpu_torch.ops.fused_bn import SYNC_BN_ITEM as _SYNC_BN
+
+_DATA = "A17 (ImageFolder, transforms, the uint8 wire modes, worker processes)"
+_DIST = "A18 (multi-process data parallelism: DDP over NCCL and the six other image recipes)"
+_GRAD_COMM = "A9 (gradient-communication stack: --zero, --grad-compress, --overlap)"
+_CKPT = "A16 (train/checkpoint.py: checkpoints, --resume, --pretrained)"
+_FUSED_CE = "A14 (fused tied-head cross-entropy, --fused-ce)"
+_FT = "A11 (fault tolerance: rollback policy, --elastic, the preemption guard)"
+_OBS = "A12 (observability: metrics, heartbeats, profiles, ledgers, alerts)"
+
+# dest -> the ROADMAP item that will port it, for flags not ported yet.
+NOT_PORTED = {
+    "wire": _DATA, "worker_type": _DATA,
+    "dist_file": _DIST,
+    "sync_bn": _SYNC_BN,
+    **dict.fromkeys(("grad_compress", "zero", "overlap", "bucket_mb"), _GRAD_COMM),
+    **dict.fromkeys(("pretrained", "resume", "checkpoint_dir", "ckpt_backend",
+                     "save_steps"), _CKPT),
+    **dict.fromkeys(("fused_ce_chunks", "fused_ce_mode"), _FUSED_CE),
+    **dict.fromkeys(("ft_rollback_k", "ft_check_every", "ft_lr_backoff",
+                     "preempt_signals", "elastic", "min_ranks", "rescale_lr"), _FT),
+    **dict.fromkeys(("profile_dir", "profile_epochs", "profile_steps", "telemetry_csv",
+                     "metrics_jsonl", "hb_dir", "hb_interval_s", "mfu", "goodput",
+                     "watch_recompiles", "comm_ledger", "mem_ledger", "lowering_cache",
+                     "flight_rec", "hang_timeout", "metrics_port", "alerts",
+                     "step_attr"), _OBS),
+}
+# "Recipe decides" flags whose explicit off value is the default behaviour.
+_OFF_VALUES = {"grad_compress": ("none",), "zero": ("none",)}
+
+
+@dataclasses.dataclass
+class Config:
+    data: str = "/home/zhangzhi/Data/exports/ImageNet2012"
+    arch: str = "resnet18"
+    workers: int = 4
+    worker_type: str = "thread"
+    epochs: int = 90
+    start_epoch: int = 0
+    batch_size: int = 3200        # global batch (reference semantics)
+    lr: float = 0.1
+    lr_schedule: str = "step"     # "step" (reference) | "cosine"
+    lr_warmup_epochs: int = 0
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    print_freq: int = 10
+    evaluate: bool = False
+    pretrained: bool = False
+    seed: Optional[int] = None
+    dist_file: Optional[str] = None
+    precision: Optional[str] = None   # None = the recipe decides
+    synthetic: bool = False
+    synthetic_length: int = 1280
+    wire: str = "f32"
+    grad_compress: Optional[str] = None
+    zero: Optional[str] = None
+    overlap: str = "none"
+    bucket_mb: float = 4.0
+    accum_steps: int = 1
+    local_rank: int = -1          # launch-line parity only
+    image_size: int = 224
+    num_classes: int = 1000
+    stem: str = "conv7"
+    fused_convbn: bool = False
+    sync_bn: bool = False
+    fused_ce_chunks: int = 0
+    fused_ce_mode: str = "auto"
+    resume: Optional[str] = None
+    checkpoint_dir: str = "runs"
+    ckpt_backend: str = "msgpack"
+    save_steps: int = 0
+    nan_guard: bool = False
+    ft_rollback_k: int = 3
+    ft_check_every: int = 10
+    ft_lr_backoff: float = 0.5
+    preempt_signals: str = "term"
+    elastic: bool = False
+    min_ranks: int = 1
+    rescale_lr: str = "none"
+    epoch_csv: Optional[str] = None
+    profile_dir: Optional[str] = None
+    profile_epochs: Optional[str] = None
+    profile_steps: Optional[str] = None
+    telemetry_csv: Optional[str] = None
+    metrics_jsonl: Optional[str] = None
+    hb_dir: Optional[str] = None
+    hb_interval_s: float = 5.0
+    mfu: bool = False
+    goodput: bool = False
+    watch_recompiles: bool = False
+    comm_ledger: Optional[str] = None
+    mem_ledger: Optional[str] = None
+    lowering_cache: Optional[str] = None
+    flight_rec: Optional[str] = None
+    hang_timeout: float = 30.0
+    metrics_port: int = 0
+    alerts: Optional[str] = None
+    step_attr: bool = False
+    device: str = "cuda"
+    nprocs: int = 1
+
+
+_NOT_PORTED_HELP = "not ported yet (exits naming its ROADMAP item)"
+
+
+def build_parser(description: str = "ImageNet Training on one CUDA card"
+                 ) -> argparse.ArgumentParser:
+    d = Config()
+    names = models.model_names()
+    p = argparse.ArgumentParser(description=description)
+    add = p.add_argument
+    add("--data", metavar="DIR", default=d.data,
+        help="path to dataset (only --synthetic is ported)")
+    add("-a", "--arch", metavar="ARCH", default=d.arch, choices=names,
+        help="model architecture: " + " | ".join(names) + f" (default: {d.arch}; "
+        "the ResNet family is ported)")
+    add("-j", "--workers", default=d.workers, type=int, metavar="N",
+        help="number of data loading threads (default: 4)")
+    add("--worker-type", default=d.worker_type, choices=("thread", "process"),
+        dest="worker_type", help="thread; process is " + _NOT_PORTED_HELP)
+    add("--epochs", default=d.epochs, type=int, metavar="N", help="number of total epochs")
+    add("--start-epoch", default=d.start_epoch, type=int, metavar="N",
+        help="manual epoch number (useful on restarts)")
+    add("-b", "--batch-size", default=d.batch_size, type=int, metavar="N",
+        help="mini-batch size")
+    add("--lr", "--learning-rate", default=d.lr, type=float, metavar="LR",
+        help="initial learning rate", dest="lr")
+    add("--lr-schedule", default=d.lr_schedule, choices=("step", "cosine"),
+        dest="lr_schedule", help="step = 0.1x every 30 epochs; cosine = warmup+cosine")
+    add("--lr-warmup-epochs", default=d.lr_warmup_epochs, type=int, dest="lr_warmup_epochs",
+        help="linear LR warmup epochs (cosine schedule)")
+    add("--momentum", default=d.momentum, type=float, metavar="M", help="momentum")
+    add("--wd", "--weight-decay", default=d.weight_decay, type=float, metavar="W",
+        help="weight decay (default: 1e-4)", dest="weight_decay")
+    add("-p", "--print-freq", default=d.print_freq, type=int, metavar="N",
+        help="print frequency (default: 10)")
+    add("-e", "--evaluate", dest="evaluate", action="store_true",
+        help="evaluate model on validation set")
+    add("--pretrained", dest="pretrained", action="store_true", help=_NOT_PORTED_HELP)
+    add("--seed", default=d.seed, type=int, help="seed for initializing training")
+    add("--dist-file", default=d.dist_file, type=str, help=_NOT_PORTED_HELP)
+    add("--precision", default=d.precision, choices=("fp32", "bf16"),
+        help="compute precision (weights stay f32); unset = recipe default")
+    add("--synthetic", action="store_true", help="use a synthetic dataset")
+    add("--synthetic-length", default=d.synthetic_length, type=int,
+        help="samples per synthetic epoch")
+    add("--image-size", default=d.image_size, type=int, help="train crop size (default 224)")
+    add("--num-classes", default=d.num_classes, type=int,
+        help="number of classes (synthetic mode)")
+    add("--accum-steps", default=d.accum_steps, type=int,
+        help="split each batch into N strided microbatches, accumulate gradients, "
+        "apply one update")
+    add("--local_rank", default=-1, type=int, help="accepted for launch-line parity")
+    add("--wire", default=d.wire, choices=("f32", "u8host", "u8", "native"),
+        help="input pipeline format: f32; the others are " + _NOT_PORTED_HELP)
+    add("--grad-compress", default=d.grad_compress, choices=("none", "bf16", "int8", "fp8"),
+        dest="grad_compress", help=_NOT_PORTED_HELP)
+    add("--zero", default=d.zero, choices=("none", "wus"), help=_NOT_PORTED_HELP)
+    add("--overlap", default=d.overlap, choices=("none", "bucketed"), help=_NOT_PORTED_HELP)
+    add("--bucket-mb", default=d.bucket_mb, type=float, dest="bucket_mb", metavar="MIB",
+        help=_NOT_PORTED_HELP)
+    add("--resume", default=d.resume, type=str, metavar="PATH", help=_NOT_PORTED_HELP)
+    add("--checkpoint-dir", default=d.checkpoint_dir, type=str, help=_NOT_PORTED_HELP)
+    add("--ckpt-backend", default=d.ckpt_backend, choices=("msgpack", "orbax"),
+        dest="ckpt_backend", help=_NOT_PORTED_HELP)
+    add("--save-steps", default=d.save_steps, type=int, dest="save_steps", metavar="N",
+        help=_NOT_PORTED_HELP)
+    add("--nan-guard", action="store_true", dest="nan_guard",
+        help="skip (inside the step, with no host sync) the update of a batch whose "
+        "loss or gradient norm is not finite: parameters, momentum and BN statistics "
+        "are restored")
+    add("--ft-rollback-k", default=d.ft_rollback_k, type=int, dest="ft_rollback_k",
+        metavar="K", help=_NOT_PORTED_HELP)
+    add("--ft-check-every", default=d.ft_check_every, type=int, dest="ft_check_every",
+        metavar="N", help=_NOT_PORTED_HELP)
+    add("--ft-lr-backoff", default=d.ft_lr_backoff, type=float, dest="ft_lr_backoff",
+        metavar="F", help=_NOT_PORTED_HELP)
+    add("--preempt-signals", default=d.preempt_signals, type=str, dest="preempt_signals",
+        metavar="SIGS", help=_NOT_PORTED_HELP)
+    add("--elastic", action="store_true", dest="elastic", help=_NOT_PORTED_HELP)
+    add("--min-ranks", default=d.min_ranks, type=int, dest="min_ranks", metavar="N",
+        help=_NOT_PORTED_HELP)
+    add("--rescale-lr", default=d.rescale_lr, choices=("none", "linear", "sqrt"),
+        dest="rescale_lr", help=_NOT_PORTED_HELP)
+    add("--epoch-csv", default=d.epoch_csv, type=str,
+        help="append [timestamp, epoch_seconds] rows to this CSV")
+    for flag, dest in (("--profile-dir", "profile_dir"), ("--profile-epochs", "profile_epochs"),
+                       ("--profile-steps", "profile_steps"), ("--metrics-jsonl", "metrics_jsonl"),
+                       ("--hb-dir", "hb_dir"), ("--comm-ledger", "comm_ledger"),
+                       ("--mem-ledger", "mem_ledger"), ("--lowering-cache", "lowering_cache"),
+                       ("--flight-rec", "flight_rec"), ("--alerts", "alerts"),
+                       ("--telemetry-csv", "telemetry_csv")):
+        add(flag, default=getattr(d, dest), type=str, dest=dest, help=_NOT_PORTED_HELP)
+    add("--hb-interval", default=d.hb_interval_s, type=float, dest="hb_interval_s",
+        metavar="SEC", help=_NOT_PORTED_HELP)
+    for flag, dest in (("--mfu", "mfu"), ("--goodput", "goodput"),
+                       ("--watch-recompiles", "watch_recompiles"), ("--step-attr", "step_attr")):
+        add(flag, action="store_true", dest=dest, help=_NOT_PORTED_HELP)
+    add("--hang-timeout", default=d.hang_timeout, type=float, dest="hang_timeout",
+        metavar="SEC", help=_NOT_PORTED_HELP)
+    add("--metrics-port", default=d.metrics_port, type=int, dest="metrics_port",
+        metavar="PORT", help=_NOT_PORTED_HELP)
+    add("--stem", default=d.stem, choices=("conv7", "space_to_depth"),
+        help="ResNet stem: torchvision conv7 or the same function on 2x2 "
+        "space-to-depth packed input")
+    add("--fused-convbn", action="store_true", dest="fused_convbn",
+        help="fold BN's backward into the stride-1 conv dgrad/wgrad (hand-written "
+        "kernels K4 1x1 and K5 3x3); the state_dict is the same either way")
+    add("--fused-ce", default=d.fused_ce_chunks, type=int, metavar="CHUNKS",
+        dest="fused_ce_chunks", help=_NOT_PORTED_HELP)
+    add("--fused-ce-mode", default=d.fused_ce_mode, choices=("auto", "replicated", "dp", "tp"),
+        dest="fused_ce_mode", help=_NOT_PORTED_HELP)
+    add("--sync-bn", action="store_true", dest="sync_bn", help=_NOT_PORTED_HELP)
+    add("--device", default=d.device, help="cuda (default) or cpu")
+    return p
+
+
+def check_ported(cfg: Config, parser: argparse.ArgumentParser) -> None:
+    """Exit naming the ROADMAP item of the first flag set to a layer that is
+    not ported yet."""
+    if not cfg.synthetic:
+        raise SystemExit("--data (the ImageFolder path) is not ported to the PyTorch "
+                         f"package yet: pass --synthetic; ROADMAP.md item {_DATA}")
+    flags = {a.dest: a.option_strings[0] for a in parser._actions if a.option_strings}
+    for dest, item in NOT_PORTED.items():
+        value = getattr(cfg, dest)
+        if value != parser.get_default(dest) and value not in _OFF_VALUES.get(dest, ()):
+            raise SystemExit(f"{flags[dest]} is not ported to the PyTorch package yet: "
+                             f"ROADMAP.md item {item}")
+
+
+def parse_config(argv=None, description: str = "ImageNet Training on one CUDA card"
+                 ) -> Config:
+    """Parse ``argv`` into a ``Config``; exits on flags not ported yet."""
+    parser = build_parser(description)
+    cfg = Config(**vars(parser.parse_args(argv)))
+    check_ported(cfg, parser)
+    return cfg
