@@ -13,7 +13,10 @@ Port of ``pytorch_distributed_tpu/ops/flash_attention.py``.
   cache.
 - Backward: K2 (dq) and K3 (dk, dv) in ``csrc/flash_attention_bwd.cu``
   replace the Pallas ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; their plain
-  version ``flash_attention_bwd_reference`` ports ``_bwd_blockwise``.
+  version ``flash_attention_bwd_reference`` ports ``_bwd_blockwise``.  On
+  bf16 they run on the tensor cores and round p and ds to bf16 before the
+  second products, where the plain version keeps them f32; on f32 they run
+  on the CUDA cores in f32 throughout.
 - ``flash_attention_fn`` is the differentiable entry point (the JAX
   ``custom_vjp``): a ``torch.autograd.Function`` whose forward is K1 and
   whose backward is K2 then K3.
@@ -198,6 +201,17 @@ def _bwd_launch(name: str, fn, q, k, v, dout, lse, delta, outs, causal: bool) ->
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
+def _check_16b_aligned(name: str, *ts: torch.Tensor) -> None:
+    """The bf16 backward kernels copy 16 bytes at a time: every base pointer
+    and every (b, l, h) stride must be a multiple of 16 bytes."""
+    for t in ts:
+        es = t.element_size()
+        if t.data_ptr() % 16 or any(s * es % 16 for s in t.stride()[:3]):
+            raise ValueError(f"{name}: bf16 kernels need 16-byte aligned data and "
+                             f"(b, l, h) strides, got strides {t.stride()} at element "
+                             f"offset {t.storage_offset()}")
+
+
 def _check_bwd_inputs(name, q, k, v, dout, lse, delta) -> None:
     _check_same(q, k, v, dout)
     B, L, H, _ = q.shape
@@ -207,6 +221,8 @@ def _check_bwd_inputs(name, q, k, v, dout, lse, delta) -> None:
                              f"float32, got {tuple(t.shape)} {t.dtype}")
     if q.device.type != "cpu":
         _check_kernel_inputs(name, q, k, v, dout)
+        if q.dtype == torch.bfloat16:
+            _check_16b_aligned(name, q, k, v, dout)
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True
