@@ -8,9 +8,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. build every CUDA kernel of the port from ``pytorch_distributed_tpu_torch/csrc``;
 2. hold the flash-attention kernel against its plain PyTorch version at the
-   serving path's shape and at a ragged non-causal f32 shape, and time the
-   kernel, the plain version and ``scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it);
+   serving path's shape and at ragged non-causal bf16 and f32 shapes, check
+   that two runs at the path shape give identical bits, and time the kernel
+   (with its TFLOP/s and share of its bound), the plain version and
+   ``scaled_dot_product_attention`` (a yardstick only: the port never calls
+   it);
 3. drive the serving path through its entry points at the full width of the
    repo's 183.9M-parameter LM (vocab 32000, d_model 1024, 16 heads, 12
    layers, bf16, seeded random weights): ``generate`` on 4 prompts of 4096
@@ -34,9 +36,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 8. hold the fused conv -> BN backward kernels (K4 1x1, K5 3x3) against
    their plain version at the ResNet-50 b256 bf16 shapes with the most
    bytes (K4: stage 1, 256->64 and 64->256; K5: the 56x56x64 and 7x7x512
-   planes) and at ragged f32 shapes (relu on and off), and time each
-   kernel, the plain version and cuDNN's convolution backward after dy
-   formed in PyTorch (a yardstick only: the port never calls it);
+   planes), at a ragged bf16 3x3 shape and at ragged f32 shapes (relu on
+   and off), check that two runs at K5's path shape give identical bits,
+   and time each kernel (with its TFLOP/s and share of its bound), the
+   plain version and cuDNN's convolution backward after dy formed in
+   PyTorch (a yardstick only: the port never calls it);
 9. drive the image training path through ``recipes.tpu_native`` with
    ``-a resnet50 --synthetic --fused-convbn -b 256 --image-size 224``, bf16,
    for 8 train steps and 1 eval batch of 204 samples padded to 256: every
@@ -138,16 +142,21 @@ def _bwd_bounds(B, L, H, D, causal, bf16):
             _roofline_ms(f_dkv, reads + 2 * B * L * H * D * es, bf16))
 
 
-def _conv_bn_bwd_bound(ks, N, H, W, Ci, Co, bf16):
-    """Least time of K4 (ks=1) or K5 (ks=3): 2 FLOP per multiply-add of
-    dgrad and of wgrad over the (pixel, tap) pairs inside the image; y, do,
-    a and the compute-dtype weight read once, the f32 vectors read once, da
-    and the f32 dW written once."""
+def _conv_bn_bwd_flops(ks, N, H, W, Ci, Co):
+    """FLOP of K4 (ks=1) or K5 (ks=3): 2 per multiply-add of dgrad and of
+    wgrad over the (pixel, tap) pairs inside the image."""
     pairs = N * (3 * H - 2) * (3 * W - 2) if ks == 3 else N * H * W
+    return 4 * pairs * Ci * Co
+
+
+def _conv_bn_bwd_bound(ks, N, H, W, Ci, Co, bf16):
+    """Least time of K4 or K5: their FLOP over the peak; y, do, a and the
+    compute-dtype weight read once, the f32 vectors read once, da and the
+    f32 dW written once."""
     es = 2 if bf16 else 4
     M = N * H * W
     nbytes = (M * (2 * Co + 2 * Ci) * es + ks * ks * Ci * Co * (es + 4) + 4 * Co * 4)
-    return _roofline_ms(4 * pairs * Ci * Co, nbytes, bf16)
+    return _roofline_ms(_conv_bn_bwd_flops(ks, N, H, W, Ci, Co), nbytes, bf16)
 
 
 def _agree(got, want, atol_frac, rtol):
@@ -184,19 +193,27 @@ def main() -> int:
             if "Function properties" in line or "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
-    # 2. kernel vs plain version.  Tolerances: both sides compute in f32
-    # from the same inputs and differ only in summation order, so f32
-    # outputs agree to ~1e-6 relative (1e-5 allowed) and lse, of size
-    # log L, to 1e-4.  A bf16 output may round one bf16 ulp apart, at most
-    # 2^-8 of its size, which rtol 1e-2 covers; atol 2e-3 only has to cover
-    # outputs near zero (a typical |o| here is 0.03-0.05).  Each case
-    # slices q, k, v out of one [B, L, 3, H, D] tensor, with the strides of
-    # the fused qkv projection's views that reach the kernel when serving.
+    # 2. kernel vs plain version.  Tolerances.  f32 runs on the CUDA cores:
+    # both sides compute in f32 from the same inputs and differ only in
+    # summation order, so outputs agree to ~1e-6 relative (atol and rtol
+    # 1e-5 allowed).  bf16 runs on the tensor cores, whose p . v takes p
+    # rounded to bf16 (as FlashAttention-2/3 and SDPA do) where the plain
+    # version keeps it f32; both round O to bf16.  Emulated on the CPU
+    # (tests/test_torch_flash_attention.py), that costs ~2.0e-3-2.4e-3
+    # relative Frobenius error and up to ~0.47 of atol 4e-3 of max|O| +
+    # rtol 1e-2 per element; so bf16 holds those, and a relative Frobenius
+    # error <= 5e-3, as K2/K3 do.  lse is f32 from f32 s on both sides and
+    # differs in summation order only: 1e-4 (it is of size log L).  Each
+    # case slices q, k, v out of one [B, L, 3, H, D] tensor, with the
+    # strides of the fused qkv projection's views that reach the kernel
+    # when serving.
     cases = [
         dict(name="path", B=4, L=4096, H=16, D=64, causal=True,
-             dtype=torch.bfloat16, atol=2e-3, rtol=1e-2),
+             dtype=torch.bfloat16, atol=4e-3, rtol=1e-2, frob=5e-3),
+        dict(name="ragged_bf16", B=2, L=1000, H=4, D=128, causal=False,
+             dtype=torch.bfloat16, atol=4e-3, rtol=1e-2, frob=5e-3),
         dict(name="ragged", B=2, L=1000, H=4, D=128, causal=False,
-             dtype=torch.float32, atol=1e-5, rtol=1e-5),
+             dtype=torch.float32, atol=1e-5, rtol=1e-5, frob=None),
     ]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -209,10 +226,20 @@ def main() -> int:
         out, lse = flash_attention(q, k, v, c["causal"])
         torch.cuda.synchronize()
         ref_out, ref_lse = flash_attention_reference(q, k, v, c["causal"])
-        err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
-        ok_out = torch.allclose(out.float(), ref_out.float(), atol=c["atol"], rtol=c["rtol"])
         ok_lse = torch.allclose(lse, ref_lse, atol=1e-4, rtol=1e-5)
+        frob = _frob(out, ref_out)
+        if c["frob"] is None:
+            err_out = (out.float() - ref_out.float()).abs().max().item()
+            ok_out = torch.allclose(out.float(), ref_out.float(), atol=c["atol"], rtol=c["rtol"])
+        else:
+            err_out, ok_out = _agree(out, ref_out, c["atol"], c["rtol"])
+            ok_out = ok_out and frob <= c["frob"]
+        same = None
+        if c["name"] == "path":
+            out2, lse2 = flash_attention(q, k, v, c["causal"])
+            same = torch.equal(out, out2) and torch.equal(lse, lse2)
+            del out2, lse2
         del ref_out, ref_lse
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = _ms(lambda: flash_attention(q, k, v, c["causal"]), 20)
@@ -220,14 +247,20 @@ def main() -> int:
         lib_ms = _ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=c["causal"]), 20)
         bound, bound_by = _bound_ms(B, L, H, D, c["causal"], c["dtype"] == torch.bfloat16)
+        flops = 4 * D * (L * (L + 1) // 2 if c["causal"] else L * L) * B * H
         results[c["name"]] = dict(err=err_out, ms=ms, plain_ms=plain_ms,
                                   library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+        atol_of = "" if c["frob"] is None else " of max|ref|"
         print(f"[kernel] {c['name']} B={B} L={L} H={H} D={D} causal={c['causal']} "
-              f"{c['dtype']}: out max err {err_out:.3e} (atol {c['atol']}, rtol "
-              f"{c['rtol']}) lse max err {err_lse:.3e} (atol 1e-4); kernel {ms} ms, "
-              f"plain {plain_ms} ms, sdpa {lib_ms} ms, bound {bound} ms ({bound_by})")
+              f"{c['dtype']}: out max err {err_out:.3e} (atol {c['atol']}{atol_of}, rtol "
+              f"{c['rtol']}), relative Frobenius {frob:.3e} (limit {c['frob']}); lse max err "
+              f"{err_lse:.3e} (atol 1e-4); kernel {ms} ms, {flops / ms / 1e9} TFLOP/s, "
+              f"{100 * bound / ms}% of its bound {bound} ms ({bound_by}); plain {plain_ms} ms, "
+              f"sdpa {lib_ms} ms" + ("" if same is None else f"; two runs bit-identical: {same}"))
         if not (ok_out and ok_lse):
             raise SystemExit(f"flash kernel disagrees with its plain version at {c['name']}")
+        if same is False:
+            raise SystemExit("flash kernel gave different bits on a rerun")
         del qkv, q, k, v, qt, kt, vt, out, lse
     torch.cuda.empty_cache()
 
@@ -449,7 +482,9 @@ def main() -> int:
     # from bn_bwd_vectors on the batch statistics of y, as on the path, so
     # the ReLU mask is live.  Tolerances: dy is formed with the same
     # roundings on both sides and the products differ in summation order
-    # only, so a bf16 da may round one ulp (2^-8 relative) apart: rtol 1e-2,
+    # only (K5's bf16 products run on the tensor cores, bf16 x bf16 exact in
+    # f32 and summed in f32, so only the order changes there too), so a
+    # bf16 da may round one ulp (2^-8 relative) apart: rtol 1e-2,
     # atol 1e-3 of max|ref| for entries near zero; dW is f32 on both sides,
     # sums of up to 802,816 terms in another order: atol 1e-4 of max|ref|,
     # rtol 1e-3.  f32 ragged shapes: atol 1e-5 of max|ref|, rtol 1e-4.
@@ -459,7 +494,13 @@ def main() -> int:
         dict(name="k4_64_256", ks=1, N=256, H=56, W=56, Ci=64, Co=256, dtype=bf16,
              relu=False),
         dict(name="k5_path", ks=3, N=256, H=56, W=56, Ci=64, Co=64, dtype=bf16, relu=True),
+        dict(name="k5_28x28_128", ks=3, N=256, H=28, W=28, Ci=128, Co=128, dtype=bf16,
+             relu=True),
+        dict(name="k5_14x14_256", ks=3, N=256, H=14, W=14, Ci=256, Co=256, dtype=bf16,
+             relu=True),
         dict(name="k5_7x7_512", ks=3, N=256, H=7, W=7, Ci=512, Co=512, dtype=bf16,
+             relu=True),
+        dict(name="k5_ragged_bf16", ks=3, N=3, H=9, W=11, Ci=70, Co=33, dtype=bf16,
              relu=True),
         dict(name="k4_ragged_relu", ks=1, N=3, H=9, W=11, Ci=70, Co=33,
              dtype=torch.float32, relu=True),
@@ -492,6 +533,11 @@ def main() -> int:
         atol, rtol = ((1e-3, 1e-2) if dt == bf16 else (1e-5, 1e-4))
         e_da, ok_da = _agree(da, rda, atol, rtol)
         e_dw, ok_dw = _agree(dw, rdw, 1e-4 if dt == bf16 else 1e-5, 1e-3 if dt == bf16 else 1e-4)
+        same = None
+        if ks == 3 and dt == bf16:
+            da2, dw2 = kernel(*args)
+            same = torch.equal(da, da2) and torch.equal(dw, dw2)
+            del da2, dw2
         del da, dw, rda, rdw
         ms = _ms(lambda: kernel(*args), 20)
         plain_ms = _ms(lambda: plain(*args), 20)
@@ -506,17 +552,33 @@ def main() -> int:
 
         lib_ms = _ms(library, 20)
         bound, bound_by = _conv_bn_bwd_bound(ks, N, H, W, Ci, Co, dt == bf16)
+        flops = _conv_bn_bwd_flops(ks, N, H, W, Ci, Co)
         conv[c["name"]] = dict(err=max(e_da, e_dw), ms=ms, plain_ms=plain_ms,
                                library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
         print(f"[conv-bn kernel] {c['name']} K{4 if ks == 1 else 5} N={N} H={H} W={W} "
               f"Ci={Ci} Co={Co} {dt} relu={relu}: max err da {e_da:.3e} dW {e_dw:.3e}; "
-              f"kernel {ms} ms, plain {plain_ms} ms, dy + cuDNN backward {lib_ms} ms, "
-              f"bound {bound} ms ({bound_by})")
+              f"kernel {ms} ms, {flops / ms / 1e9} TFLOP/s, {100 * bound / ms}% of its bound "
+              f"{bound} ms ({bound_by}); plain {plain_ms} ms, dy + cuDNN backward {lib_ms} ms"
+              + ("" if same is None else f"; two runs bit-identical: {same}"))
         if not (ok_da and ok_dw):
             raise SystemExit(f"fused conv-BN kernel disagrees with its plain version at "
                              f"{c['name']}")
+        if same is False:
+            raise SystemExit("fused conv-BN kernel gave different bits on a rerun")
         del y, do, a, w, wc, a_nchw, args
     torch.cuda.empty_cache()
+    # A bf16 plane too wide for the tensor-core kernel's shared memory
+    # raises: there is no other bf16 3x3 kernel to fall back to.
+    wide = torch.zeros(1, 2, 107, 8, device=dev, dtype=bf16)
+    vec8 = torch.zeros(8, device=dev)
+    try:
+        fused_dgrad_wgrad_3x3(wide, wide, wide, torch.zeros(8, 8, 3, 3, device=dev),
+                              vec8, vec8, vec8, vec8, True)
+    except ValueError as e:
+        print(f"[conv-bn kernel] bf16 3x3 plane 107 wide refused: {e}")
+    else:
+        raise SystemExit("K5 took a bf16 plane wider than its kernel supports")
+    del wide, vec8
 
     # 9. the image training path at full ResNet-50 width, through the recipe
     steps, per_step = 8, (33, 13)

@@ -28,20 +28,21 @@
 //   across a sequential grid.  Here a CTA has at most 227 KB of shared
 //   memory (W alone is up to 2 MB bf16) and CTAs run in no order, so each
 //   product is its own kernel: dgrad tiles (pixels, Ci) and loops over
-//   (taps, Co); wgrad tiles (Co, Ci) per tap and loops over a slice of the
-//   pixels.  dy is recomputed from (y, dout, vec) in the prologue of every
-//   chunk each product loads, and never written to device memory: that is
-//   the fold.
+//   (taps, Co); wgrad tiles (Co, Ci) (per tap, or all taps in the bf16 3x3
+//   kernel) and loops over a slice of the pixels.  dy is recomputed from
+//   (y, dout, vec) in the prologue of every chunk each product loads, and
+//   never written to device memory: that is the fold.
 // - dW is reduced across the grid in two deterministic passes: each of
 //   `splits` pixel slices writes an f32 partial [taps, Co, Ci] to scratch
 //   the wrapper allocates, and a second kernel sums the partials in slice
 //   order.  No atomics, so dW is the same bit for bit on every run (the
 //   precedent of the flash backward kernels).  The wrapper picks the split
-//   count so that about 4 CTAs per SM are in flight on 132 SMs, with at
-//   least 256 pixels per slice; at ResNet-50 b256 the scratch stays under
-//   13 MB.
+//   count: for the CUDA-core wgrad about 4 CTAs per SM in flight on 132
+//   SMs, with at least 256 pixels per slice; for the bf16 3x3 tensor-core
+//   wgrad (one CTA per SM) about two full waves.  At ResNet-50 b256 the
+//   scratch stays under 40 MB.
 // - K5 does not tile whole planes (a 56x56x64 bf16 plane is 401 KB per
-//   tensor).  It is an implicit GEMM over 64-pixel tiles of the flattened
+//   tensor).  It is an implicit GEMM over pixel tiles of the flattened
 //   (n, h, w) order: each tap's source pixel is computed per row, and a
 //   source outside the image (or past M) is predicated to zero.  Computing
 //   dy there from y = dout = 0 would give dy = u != 0; the predicate gives
@@ -61,20 +62,45 @@
 // Ci = 256, Co = 64) the fold must read y, dout (M*Co each) and a (M*Ci) and
 // write da (M*Ci): 1.03 GB, 0.31 ms at 3.35 TB/s, against 4*M*Ci*Co =
 // 5.3e10 FLOP, 0.053 ms at 989 TFLOP/s bf16.  K4 is byte-bound at most
-// ResNet-50 shapes, K5 (9x the FLOP per byte) operation-bound.  This first
-// version computes on the CUDA cores in f32: 64x64 output tiles, 256
-// threads with 4x4 register microtiles, 16-deep chunks staged in shared
-// memory, bf16 inputs widened to f32 on load (a product of two bf16 values
-// is exact in f32, so this is the tensor cores' bf16 x bf16 -> f32
-// arithmetic in another summation order).  Its ceiling is the f32 FMA rate,
-// far from either bound; wgmma with TMA-fed tiles is the next step.
-// Registers (-Xptxas -v, nvcc 12.8, as chip_smoke.py prints them): 64 for
-// dgrad, 80 for wgrad, 32 for sum_splits, in every dtype and kernel size;
-// 8704 bytes of static shared memory; no spills.
+// ResNet-50 shapes, K5 (9x the FLOP per byte) operation-bound.
+//
+// Two designs, by instantiation:
+// - f32 (K4 and K5) and bf16 K4: the CUDA cores in f32, 64x64 output
+//   tiles, 256 threads with 4x4 register microtiles, 16-deep chunks staged
+//   in shared memory, bf16 inputs widened to f32 on load (a product of two
+//   bf16 values is exact in f32, so this is the tensor cores' bf16 x bf16
+//   -> f32 arithmetic in another summation order).  Its ceiling is the f32
+//   FMA rate.  Registers (-Xptxas -v, nvcc 12.8): 64 for dgrad, 80 for
+//   wgrad, 32 for sum_splits; 8704 bytes of static shared memory.
+// - bf16 K5 (`dgrad3_mma_kernel`, `wgrad3_mma_kernel`): the tensor cores,
+//   through warpgroup wgmma (m64nNk16, f32 accumulate) with the A operand
+//   in registers.  A tap's shifted operand is the halo tile shifted by the
+//   tap's offset, row by row, with each out-of-image row (above, below, or
+//   across the left or right edge into the neighbouring image row)
+//   replaced by a row of zeros.  wgmma's shared-memory descriptors read
+//   8-row swizzle atoms at one stride, so such a view cannot be one; but
+//   ldmatrix takes an address per row, so it loads the view into register
+//   A fragments at no cost, and the other operand, a plain tile, is read
+//   by a descriptor.  dgrad's A is the shifted dy halo and its B the tap's
+//   W tile (MN-major); wgrad computes dW^T, A the shifted a halo (loaded
+//   transposed) and B the chunk's dy tile (MN-major).  Products of bf16
+//   values are exact in f32 and summed in f32, and dy is formed with the
+//   plain version's roundings, so only the summation order differs from
+//   the CUDA-core kernels.  dgrad computes dy once per 64-channel chunk
+//   for its 128 pixels and their halo and reads the 9 taps from it; W
+//   streams through a ring of tap tiles copied two steps ahead.  wgrad
+//   keeps all 9 taps of a 64 x 64 (ci, co) tile in one CTA (3 warpgroups),
+//   so dy and a are read once per 128-pixel chunk for all taps.  Fragments
+//   are written, and loops close, only with no wgmma in flight: ptxas
+//   serialises every wgmma otherwise (C7513, C7515).  See the kernels for
+//   their layouts.  Registers: 80 (dgrad, 64 channels a CTA), 128 (128
+//   channels), 168 (wgrad).  On an H100, 19% of the bound at 56x56x64,
+//   22% at 28x28x128 and 14x14x256 and 17% at 7x7x512, slower than dy +
+//   cuDNN there (PERF.md): the dy prologues and the copies are not hidden
+//   behind the products.  wgrad's ring of halo tiles caps bf16 planes at
+//   106 pixels wide; wider ones are refused.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -127,6 +153,14 @@ __device__ __forceinline__ float dy_elem(const T* __restrict__ y, const T* __res
   const float d = __fadd_rn(__fadd_rn(__fmul_rn(dof, s), __fmul_rn(yf, vec[Co + c])),
                             vec[2 * Co + c]);
   return to_f32(from_f32<T>(d));
+}
+
+// The same dy from f32 y and dout and the channel's (s, t, u, v), before
+// its rounding: the tensor-core kernels' form, on values already loaded.
+__device__ __forceinline__ float dy_val(float yf, float dof, float s, float t, float u, float v,
+                                        int relu) {
+  if (relu && !(__fadd_rn(__fmul_rn(yf, s), v) > 0.f)) dof = 0.f;
+  return __fadd_rn(__fadd_rn(__fmul_rn(dof, s), __fmul_rn(yf, t)), u);
 }
 
 // acc[i][j] += sum_k As[k][ty + 16 i] * Bs[k][tx + 16 j] over one chunk.
@@ -274,6 +308,481 @@ cudaError_t launch(const void* y, const void* dout, const void* a, const void* w
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K5, bf16: tensor cores (wgmma, register A fragments through ldmatrix)
+// ---------------------------------------------------------------------------
+//
+// Tiles are 64 channels wide (128-byte rows of bf16) with their 16-byte
+// chunks permuted by XOR with the row index mod 8: wgmma's 128-byte
+// swizzle where a tile starts 1024-byte aligned, and the 8 rows one
+// ldmatrix reads sit on distinct banks.  A tap's shifted operand is a view
+// of a halo tile: each lane of an ldmatrix names its own row, and a row
+// whose source pixel falls outside the image (above, below, or across the
+// left or right edge into the neighbouring image row) names a row of zeros.
+
+constexpr int TC_ROW = 128;                // bytes of one tile row
+constexpr int TAP_BYTES = 64 * TC_ROW;     // a 64 x 64 bf16 tile
+constexpr int DW_G = 2;                    // dgrad: warpgroups per CTA
+constexpr int DW_TM = 64 * DW_G;           // dgrad: pixels per CTA, 64 per warpgroup
+constexpr int DG_WS = 4;                   // dgrad: slots of the ring of W tap tiles
+constexpr int WG_NT = 3 * 128;            // wgrad: a warpgroup per kernel row
+constexpr int WG_SC = 128;                 // wgrad: pixels per chunk
+constexpr int WG_ST = 3;                   // wgrad: stages of the ring of chunks
+constexpr int WG_YB = WG_SC * TC_ROW;      // wgrad: bytes of a chunk's y (or dout) tile
+constexpr size_t MAX_SMEM = 232448;        // a CTA's shared memory on sm_90
+
+__device__ __forceinline__ uint32_t rsw(int r, int c) {
+  return r * TC_ROW + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]));
+}
+
+// Orders this thread's shared-memory writes before later reads by wgmma,
+// which go through the async proxy.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ld_shared_v4(uint32_t (&v)[4], uint32_t addr) {
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// dy of pixels [p0, p0 + rows) and channels [co0, co0 + 64) into a tile,
+// zero for pixels outside [p_lo, p_hi) and channels past Co.  sv holds the
+// chunk's (s, t, u, v) as [4][64] f32.  V: Co % 8 == 0 and 16-byte aligned
+// rows, read 8 channels at a time; the loop is unrolled so that several
+// items' loads are in flight at once.
+template <bool V, int NTH>
+__device__ __forceinline__ void fill_dy(uint32_t dst, const bf16* __restrict__ y,
+                                        const bf16* __restrict__ dout, const float* sv, int Co,
+                                        int co0, int p0, int rows, int p_lo, int p_hi,
+                                        int relu) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rows * 8; i += NTH) {
+    const int r = i >> 3, cc = 8 * (i & 7), p = p0 + r;
+    float d[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (p >= p_lo && p < p_hi) {
+      const int64_t off = (int64_t)p * Co + co0 + cc;
+      if constexpr (V) {
+        if (co0 + cc < Co) {
+          const uint4 yv = __ldg(reinterpret_cast<const uint4*>(y + off));
+          const uint4 gv = __ldg(reinterpret_cast<const uint4*>(dout + off));
+          const uint32_t* yw = reinterpret_cast<const uint32_t*>(&yv);
+          const uint32_t* gw = reinterpret_cast<const uint32_t*>(&gv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 yf = bf16x2_to_float2(yw[e]), gf = bf16x2_to_float2(gw[e]);
+            const int c = cc + 2 * e;
+            d[2 * e] = dy_val(yf.x, gf.x, sv[c], sv[64 + c], sv[128 + c], sv[192 + c], relu);
+            d[2 * e + 1] =
+                dy_val(yf.y, gf.y, sv[c + 1], sv[65 + c], sv[129 + c], sv[193 + c], relu);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (co0 + cc + e < Co)
+            d[e] = dy_val(__bfloat162float(y[off + e]), __bfloat162float(dout[off + e]),
+                          sv[cc + e], sv[64 + cc + e], sv[128 + cc + e], sv[192 + cc + e], relu);
+      }
+    }
+    const uint32_t w[4] = {pack_bf16(d[0], d[1]), pack_bf16(d[2], d[3]), pack_bf16(d[4], d[5]),
+                           pack_bf16(d[6], d[7])};
+    st_shared_v4(dst + rsw(r, i & 7), w);
+  }
+}
+
+// dy in place: rows [0, rows) of tile sy hold y and of tile sg dout for
+// pixels p0 + r and the chunk's 64 channels; each 16-byte chunk of sy
+// becomes dy, zero for pixels outside [p_lo, p_hi).  Channels past Co hold
+// y = dout = 0 and (s, t, u, v) = 0 in sv, so their dy is 0 as well.
+template <int NTH>
+__device__ __forceinline__ void convert_dy(uint32_t sy, uint32_t sg, const float* sv, int p0,
+                                           int rows, int p_lo, int p_hi, int relu) {
+  for (int i = threadIdx.x; i < rows * 8; i += NTH) {
+    const int r = i >> 3, cc = 8 * (i & 7), p = p0 + r;
+    const uint32_t off = rsw(r, i & 7);
+    uint32_t d[4] = {0u, 0u, 0u, 0u};
+    if (p >= p_lo && p < p_hi) {
+      uint32_t yv[4], gv[4];
+      ld_shared_v4(yv, sy + off);
+      ld_shared_v4(gv, sg + off);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 yf = bf16x2_to_float2(yv[e]), gf = bf16x2_to_float2(gv[e]);
+        const int c = cc + 2 * e;
+        d[e] = pack_bf16(
+            dy_val(yf.x, gf.x, sv[c], sv[64 + c], sv[128 + c], sv[192 + c], relu),
+            dy_val(yf.y, gf.y, sv[c + 1], sv[65 + c], sv[129 + c], sv[193 + c], relu));
+      }
+    }
+    st_shared_v4(sy + off, d);
+  }
+}
+
+// Rows [0, rows) of a tile from a row-major bf16 matrix: row r is src row
+// row0 + r (zero when that is outside [0, n_rows)), columns [col0, col0 +
+// 64) of n_cols (zero past n_cols).  V: cp.async 16 bytes at a time (the
+// caller commits); otherwise element by element, visible after the next
+// barrier.
+template <bool V, int NTH>
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* __restrict__ src, int row0,
+                                          int rows, int n_rows, int n_cols, int col0) {
+  for (int i = threadIdx.x; i < rows * 8; i += NTH) {
+    const int r = i >> 3, c = i & 7, row = row0 + r, col = col0 + 8 * c;
+    const bool in = row >= 0 && row < n_rows;
+    if constexpr (V) {
+      const bool ok = in && col < n_cols;
+      cp_async16(dst + rsw(r, c), ok ? src + (int64_t)row * n_cols + col : src, ok ? 16 : 0);
+    } else {
+      float d[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = in && col + e < n_cols
+                   ? __bfloat162float(src[(int64_t)row * n_cols + col + e]) : 0.f;
+      const uint32_t w[4] = {pack_bf16(d[0], d[1]), pack_bf16(d[2], d[3]),
+                             pack_bf16(d[4], d[5]), pack_bf16(d[6], d[7])};
+      st_shared_v4(dst + rsw(r, c), w);
+    }
+  }
+}
+
+// The channel chunk's (s, t, u, v) into sv [4][64], zero past Co.
+template <int NTH>
+__device__ __forceinline__ void load_vec(float* sv, const float* __restrict__ vec, int Co,
+                                         int co0) {
+  for (int i = threadIdx.x; i < 256; i += NTH) {
+    const int c = co0 + (i & 63);
+    sv[i] = c < Co ? vec[(i >> 6) * Co + c] : 0.f;
+  }
+}
+
+// dgrad on wgmma: one CTA per (DW_TM pixels, 64 * NB input channels),
+// DW_G warpgroups, warpgroup g owning 64 of the pixels and all 64 * NB
+// channels in f32 accumulators.  Per 64-channel chunk of Co, dy is computed
+// once for the tile and its halo (W + 1 rows above and below) into shared
+// memory.  Each tap's A operand is that halo shifted by the tap's offset,
+// loaded into register fragments by ldmatrix (a row per lane, so an
+// out-of-image row names the zero row); its B operand is the tap's W
+// [64 co x 64 NB ci] tile, read MN-major by the wgmma descriptor.  The W
+// tiles of the (chunk, tap) steps stream through a ring of 4 slots, copied
+// two steps ahead; a step's products run while the copies of a later step
+// are issued.
+template <bool V, int NB>
+__global__ void __launch_bounds__(128 * DW_G, NB == 1 ? 3 : V ? 2 : 1)
+dgrad3_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
+                  const float* __restrict__ vec, const bf16* __restrict__ wt,
+                  bf16* __restrict__ da, Geo g, int Ci, int Co, int relu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NT = 128 * DW_G;
+  constexpr uint32_t SLOT = NB * TAP_BYTES;      // one step's W: NB blocks [co][64 ci]
+  const int HR = DW_TM + 2 * g.W + 2;
+  const uint32_t sW = aligned_smem(smem);        // the ring of W slots
+  const uint32_t sZ = sW + DG_WS * SLOT;         // a row of zeros
+  float* sv = reinterpret_cast<float*>(smem + (sZ + TC_ROW - smem_u32(smem)));
+  const uint32_t sH = sZ + TC_ROW + 1024;        // dy of the halo [HR][co]
+  const int m0 = blockIdx.x * DW_TM, c0 = blockIdx.y * 64 * NB, h0 = m0 - (g.W + 1);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_steps = (Co + 63) / 64 * 9;
+  if (tid < 8) {
+    const uint32_t z[4] = {0u, 0u, 0u, 0u};
+    st_shared_v4(sZ + 16 * tid, z);
+  }
+  auto load_w = [&](int s) {  // step s = 9 * chunk + tap
+    if (s < n_steps)
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+        load_rows<V, NT>(sW + (s % DG_WS) * SLOT + n * TAP_BYTES,
+                         wt + (int64_t)(s % 9) * Co * Ci, (s / 9) * 64, 64, Co, Ci, c0 + 64 * n);
+    cp_async_commit();
+  };
+  load_w(0);
+  load_w(1);
+
+  // This lane's A row (ldmatrix address) in the warp's 16 pixels: tile
+  // row, and the pixel's image row and column (-2H when past M, so that
+  // every shift falls outside).
+  const int mr = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int pq = (m0 + mr) % g.W;
+  const int pr = m0 + mr < g.M ? ((m0 + mr) / g.W) % g.H : -2 * g.H;
+
+  float acc[NB * 8][4];
+#pragma unroll
+  for (int j = 0; j < NB * 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  // Step s = 9 * chunk + tap.  At a chunk's first tap, the halo's dy for
+  // that chunk of 64 output channels.  A step waits for its W tile, loads
+  // its fragments and issues its four 16-deep products, which run while the
+  // copies of step s + 2 are issued; it waits for them before the next
+  // step.  No product is in flight where fragments are written or across
+  // the loop's back edge: ptxas serialises every wgmma otherwise (C7513,
+  // C7515).
+  for (int s = 0; s < n_steps; ++s) {
+    const int tap = s % 9;
+    if (tap == 0) {
+      const int co0 = s / 9 * 64;
+      __syncthreads();  // every warp has read the previous chunk's halo and vectors
+      load_vec<NT>(sv, vec, Co, co0);
+      __syncthreads();
+      fill_dy<V, NT>(sH, y, dout, sv, Co, co0, h0, HR, 0, g.M, relu);
+    }
+    cp_async_wait_1();  // this step's W tile has landed (this thread's copies)
+    __syncthreads();    // everyone's copies; at tap 0 the halo is written
+    // dgrad reads dy at (h + 1 - kh, w + 1 - kw) for tap (kh, kw).
+    const int dh = 1 - tap / 3, dw = 1 - tap % 3;
+    const bool ok = pr + dh >= 0 && pr + dh < g.H && pq + dw >= 0 && pq + dw < g.W;
+    const int hr = mr + g.W + 1 + dh * g.W + dw;
+    const uint32_t arow = ok ? sH + hr * TC_ROW : sZ;
+    const int ax = ok ? (hr & 7) : 0;
+    uint32_t fa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ldsm_x4(fa[kk], arow + (((2 * kk + (lane >> 4)) ^ ax) << 4));
+    const uint32_t sWt = sW + (s % DG_WS) * SLOT;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<64 * NB>(acc, fa[kk], gmma_desc(sWt + kk * 16 * TC_ROW, TAP_BYTES, 1024));
+    wg_commit();
+    load_w(s + 2);  // into the slot of step s - 2, which every warpgroup is done with
+    wg_wait_all();
+  }
+  reg_fence<NB * 8>(acc);
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int m = m0 + 16 * warp + (lane >> 2) + 8 * hh;
+    if (m >= g.M) continue;
+    bf16* row = da + (int64_t)m * Ci;
+#pragma unroll
+    for (int j = 0; j < NB * 8; ++j) {
+      const int ci = c0 + 8 * j + 2 * (lane & 3);
+      const float lo = acc[j][2 * hh], hi = acc[j][2 * hh + 1];
+      if constexpr (V) {
+        if (ci < Ci) *reinterpret_cast<uint32_t*>(row + ci) = pack_bf16(lo, hi);
+      } else {
+        if (ci < Ci) row[ci] = __float2bfloat16(lo);
+        if (ci + 1 < Ci) row[ci + 1] = __float2bfloat16(hi);
+      }
+    }
+  }
+}
+
+// wgrad on wgmma: one CTA per (64 output channels, 64 input channels, pixel
+// slice), three warpgroups, warpgroup kh owning the three taps of kernel
+// row kh.  It computes dW^T: M = 64 input channels (16 per warp), N = 64
+// output channels, K = pixels.  Per 128-pixel chunk, y and dout are copied
+// into shared memory and turned into dy there (the B operand of every tap,
+// read MN-major by the descriptor), and a is copied once with its halo;
+// each tap's A operand is the halo shifted by the tap's offset, loaded
+// transposed into register fragments by ldmatrix (a row per lane, so an
+// out-of-image row names the zero row).  Chunks go through a ring of 3
+// stages: chunk ch + 2 is copied, and dy of chunk ch + 1 computed between
+// the products of chunk ch.  Writes the slice's f32 partial
+// [tap][co][ci] at out + slice * 9 * Co * Ci.
+template <bool V>
+__global__ void __launch_bounds__(WG_NT, 1)
+wgrad3_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
+                  const float* __restrict__ vec, const bf16* __restrict__ a,
+                  float* __restrict__ out, Geo g, int Ci, int Co, int relu,
+                  int rows_per_split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int HA = WG_SC + 2 * g.W + 2;
+  // Stage st: dy (from y) at sDy + st * WG_YB (1024-aligned, for the
+  // descriptor), dout at sG + st * WG_YB, the a halo at sA + st * HA rows.
+  const uint32_t sDy = aligned_smem(smem);
+  const uint32_t sG = sDy + WG_ST * WG_YB;
+  const uint32_t sA = sG + WG_ST * WG_YB;
+  const uint32_t sZ = sA + WG_ST * HA * TC_ROW;     // a row of zeros
+  float* sv = reinterpret_cast<float*>(smem + (sZ + TC_ROW - smem_u32(smem)));
+  const int n_ci = (Ci + 63) / 64;
+  const int ci0 = (blockIdx.x % n_ci) * 64, co0 = (blockIdx.x / n_ci) * 64;
+  const int mb = blockIdx.y * rows_per_split, me = min(g.M, mb + rows_per_split);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int kh = w >> 2, wq = w & 3;
+  const int dh = kh - 1;  // wgrad reads a at (h + kh - 1, w + kw - 1) for tap (kh, kw)
+  const int n_ch = me > mb ? (me - mb + WG_SC - 1) / WG_SC : 0;
+  if (tid < 8) {
+    const uint32_t z[4] = {0u, 0u, 0u, 0u};
+    st_shared_v4(sZ + 16 * tid, z);
+  }
+  auto load_chunk = [&](int ch) {
+    const int st = ch % WG_ST, r0 = mb + ch * WG_SC;
+    load_rows<V, WG_NT>(sDy + st * WG_YB, y, r0, WG_SC, g.M, Co, co0);
+    load_rows<V, WG_NT>(sG + st * WG_YB, dout, r0, WG_SC, g.M, Co, co0);
+    load_rows<V, WG_NT>(sA + st * HA * TC_ROW, a, r0 - (g.W + 1), HA, g.M, Ci, ci0);
+  };
+  load_vec<WG_NT>(sv, vec, Co, co0);
+  if (n_ch > 0) load_chunk(0);
+  cp_async_commit();
+  if (n_ch > 1) load_chunk(1);
+  cp_async_commit();
+  cp_async_wait_1();
+  __syncthreads();
+  if (n_ch > 0) convert_dy<WG_NT>(sDy, sG, sv, mb, WG_SC, mb, me, relu);
+  fence_async_smem();
+
+  float acc[3][8][4];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[t][j][0] = acc[t][j][1] = acc[t][j][2] = acc[t][j][3] = 0.f;
+
+  for (int ch = 0; ch < n_ch; ++ch) {
+    const int r0 = mb + ch * WG_SC, st = ch % WG_ST;
+    const uint32_t dyb = sDy + st * WG_YB, ab = sA + st * HA * TC_ROW;
+    cp_async_wait_0();  // chunk ch + 1 has landed (this thread's copies)
+    // Everyone's copies of chunk ch + 1 have landed, dy of chunk ch is
+    // written, and every warpgroup is done with chunk ch - 1.
+    __syncthreads();
+    if (ch + 2 < n_ch) load_chunk(ch + 2);  // into the stage of chunk ch - 1
+    cp_async_commit();
+    const int nst = (ch + 1) % WG_ST;
+    // The image row and column of this lane's A row (a pixel) in each
+    // 16-deep step: one division a chunk, then steps of 16 pixels.
+    const int p_0 = r0 + (lane & 7) + ((lane >> 4) & 1) * 8;
+    int pq = p_0 % g.W, pr = (p_0 / g.W) % g.H;
+    // Two 16-deep steps a group: their fragments are loaded with no product
+    // in flight, then their six products are issued, and dy of the next
+    // chunk is computed, 32 rows a group, while they run.  No product is in
+    // flight where fragments are written or across the loop's back edge:
+    // ptxas serialises every wgmma otherwise (C7513, C7515).
+    uint32_t fa[2][3][4];
+#pragma unroll
+    for (int kk2 = 0; kk2 < WG_SC / 32; ++kk2) {
+      if (kk2 > 0) wg_wait_all();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kk = 2 * kk2 + h;
+        if (kk > 0) {
+          pq += 16;
+          while (pq >= g.W) {
+            pq -= g.W;
+            pr = pr + 1 == g.H ? 0 : pr + 1;
+          }
+        }
+        const int br = 16 * kk + (lane & 7) + ((lane >> 4) & 1) * 8;
+        const bool row_ok = r0 + br < g.M && pr + dh >= 0 && pr + dh < g.H;
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          const int dw = t - 1;
+          const bool ok = row_ok && pq + dw >= 0 && pq + dw < g.W;
+          const int hr = br + g.W + 1 + dh * g.W + dw;
+          const uint32_t base = ok ? ab + hr * TC_ROW : sZ;
+          const int x = ok ? (hr & 7) : 0;
+          ldsm_x4_t(fa[h][t], base + (((2 * wq + ((lane >> 3) & 1)) ^ x) << 4));
+        }
+      }
+      wg_fence();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int t = 0; t < 3; ++t)
+          wgmma_rs_n64(acc[t], fa[h][t],
+                       gmma_desc(dyb + (2 * kk2 + h) * 16 * TC_ROW, WG_YB, 1024));
+      wg_commit();
+      if (ch + 1 < n_ch)
+        convert_dy<WG_NT>(sDy + nst * WG_YB + kk2 * 32 * TC_ROW,
+                          sG + nst * WG_YB + kk2 * 32 * TC_ROW, sv, r0 + WG_SC + 32 * kk2, 32,
+                          mb, me, relu);
+    }
+    wg_wait_all();
+    fence_async_smem();  // dy of the next chunk, for the descriptor reads
+  }
+#pragma unroll
+  for (int t = 0; t < 3; ++t) reg_fence<8>(acc[t]);
+
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    float* o = out + ((int64_t)blockIdx.y * 9 + kh * 3 + t) * Co * Ci;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int ci = ci0 + 16 * wq + (lane >> 2) + 8 * hh;
+      if (ci >= Ci) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int co = co0 + 8 * j + 2 * (lane & 3);
+        if (co < Co) o[(int64_t)co * Ci + ci] = acc[t][j][2 * hh];
+        if (co + 1 < Co) o[(int64_t)(co + 1) * Ci + ci] = acc[t][j][2 * hh + 1];
+      }
+    }
+  }
+}
+
+size_t dgrad3_smem(const Geo& g, int nb) {
+  return 1024 + DG_WS * nb * TAP_BYTES + TC_ROW + 1024 + (size_t)(DW_TM + 2 * g.W + 2) * TC_ROW;
+}
+
+size_t wgrad3_smem(const Geo& g) {
+  return 1024 + WG_ST * (2 * WG_YB + (size_t)(WG_SC + 2 * g.W + 2) * TC_ROW) + TC_ROW + 1024;
+}
+
+template <bool V, int NB>
+cudaError_t launch_dgrad3(const bf16* y, const bf16* dout, const float* vec, const bf16* wt,
+                          bf16* da, Geo g, int Ci, int Co, int relu, cudaStream_t stream) {
+  const size_t dsm = dgrad3_smem(g, NB);
+  cudaError_t err = opt_in_smem(dgrad3_mma_kernel<V, NB>, dsm);
+  if (err != cudaSuccess) return err;
+  const dim3 dgrid((g.M + DW_TM - 1) / DW_TM, (Ci + 64 * NB - 1) / (64 * NB));
+  dgrad3_mma_kernel<V, NB><<<dgrid, 128 * DW_G, dsm, stream>>>(y, dout, vec, wt, da, g, Ci, Co,
+                                                             relu);
+  return cudaGetLastError();
+}
+
+template <bool V>
+cudaError_t launch_bf16_3x3_mma(const bf16* y, const bf16* dout, const bf16* a, const bf16* wt,
+                                const float* vec, bf16* da, float* dw, float* scratch, Geo g,
+                                int Ci, int Co, int relu, int splits, int rows_per_split,
+                                cudaStream_t stream) {
+  // 128 input channels a CTA where there are more than 64: dy is then
+  // recomputed, and W read, half as often per product.
+  cudaError_t err = Ci > 64 ? launch_dgrad3<V, 2>(y, dout, vec, wt, da, g, Ci, Co, relu, stream)
+                            : launch_dgrad3<V, 1>(y, dout, vec, wt, da, g, Ci, Co, relu, stream);
+  if (err != cudaSuccess) return err;
+  const size_t wsm = wgrad3_smem(g);
+  err = opt_in_smem(wgrad3_mma_kernel<V>, wsm);
+  if (err != cudaSuccess) return err;
+  float* part = splits > 1 ? scratch : dw;
+  const dim3 wgrid(((Ci + 63) / 64) * ((Co + 63) / 64), splits);
+  wgrad3_mma_kernel<V><<<wgrid, WG_NT, wsm, stream>>>(y, dout, vec, a, part, g, Ci, Co, relu,
+                                                     rows_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int64_t size = (int64_t)9 * Co * Ci;
+  const int blocks = (int)((size + 255) / 256 < 4096 ? (size + 255) / 256 : 4096);
+  sum_splits_kernel<<<blocks, 256, 0, stream>>>(part, dw, size, splits);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// K5 in bf16: the tensor-core kernels, 16 bytes at a time where every
+// channel count is a multiple of 8 and every pointer 16-byte aligned,
+// element by element otherwise.  A plane so wide that wgrad's halo ring
+// exceeds a CTA's shared memory (W above 106) is refused; the wrapper
+// raises before it gets here.
+cudaError_t launch_bf16_3x3(const void* y, const void* dout, const void* a, const void* wt,
+                            const void* vec, void* da, void* dw, void* scratch, Geo g, int Ci,
+                            int Co, int relu, int splits, int rows_per_split,
+                            cudaStream_t stream) {
+  if (dgrad3_smem(g, 2) > MAX_SMEM || wgrad3_smem(g) > MAX_SMEM) return cudaErrorInvalidValue;
+  const bool v = Ci % 8 == 0 && Co % 8 == 0 && aligned16(y) && aligned16(dout) &&
+                 aligned16(a) && aligned16(wt) && aligned16(da) && aligned16(dw) &&
+                 aligned16(scratch);
+  auto run = v ? launch_bf16_3x3_mma<true> : launch_bf16_3x3_mma<false>;
+  return run(static_cast<const bf16*>(y), static_cast<const bf16*>(dout),
+             static_cast<const bf16*>(a), static_cast<const bf16*>(wt),
+             static_cast<const float*>(vec), static_cast<bf16*>(da), static_cast<float*>(dw),
+             static_cast<float*>(scratch), g, Ci, Co, relu, splits, rows_per_split, stream);
+}
+
 }  // namespace
 
 // y, dout: contiguous [M, Co] and a: contiguous [M, Ci] in the input dtype,
@@ -302,6 +811,6 @@ extern "C" int ptd_fused_conv_bn_bwd(const void* y, const void* dout, const void
   if (dtype == 1 && ks == 1)
     return launch<__nv_bfloat16, 1>(y, dout, a, wt, vec, da, dw, scratch, g, Ci, Co, relu, splits, rows_per_split, s);
   if (dtype == 1 && ks == 3)
-    return launch<__nv_bfloat16, 3>(y, dout, a, wt, vec, da, dw, scratch, g, Ci, Co, relu, splits, rows_per_split, s);
+    return launch_bf16_3x3(y, dout, a, wt, vec, da, dw, scratch, g, Ci, Co, relu, splits, rows_per_split, s);
   return cudaErrorInvalidValue;
 }

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface.  ``nvcc`` compiles it
 into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the checkout
-(the hash covers the source and the flags, so an edited source rebuilds) and
+(the hash covers the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header rebuilds) and
 the library is loaded with ``ctypes``.  Nothing is built when a module is
 imported: the first launch builds, or ``build_all`` builds every source at
 once, one ``nvcc`` process per source, all started together.
@@ -38,9 +39,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path: its name carries a digest of the source, every
+    ``csrc/*.cuh`` header (any source may include any of them) and the
+    flags, so an edited source or header builds anew."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:

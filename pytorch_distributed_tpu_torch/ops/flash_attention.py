@@ -5,6 +5,8 @@ Port of ``pytorch_distributed_tpu/ops/flash_attention.py``.
 - Forward: the kernel K1 (``csrc/flash_attention_fwd.cu``) replaces the
   Pallas ``_fwd_kernel``: online softmax over kv tiles kept in shared
   memory, O and the logsumexp out, no [L, L] score matrix in device memory.
+  On bf16 it runs on the tensor cores and rounds p to bf16 before p . v,
+  where the plain version keeps p f32; on f32 it runs on the CUDA cores.
   ``flash_attention_reference`` is the same function in plain PyTorch: the
   kernel wrapper takes it for CPU tensors only, and the card holds the
   kernel against it.  It is also the port's one body of plain attention,
@@ -109,13 +111,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention forward over [B, L, H, D]; returns ``(out, lse [B, H, L])``.
 
     CUDA tensors go through the Hopper kernel (f32 or bf16, D in {64, 128},
-    unit stride on D; anything else raises).  CPU tensors take the plain
+    unit stride on D, and for bf16 16-byte aligned data and (b, l, h)
+    strides; anything else raises).  CPU tensors take the plain
     version.  ``flash_attention.launches`` counts kernel launches.
     """
     _check_same(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal)
     _check_kernel_inputs("flash_attention", q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_16b_aligned("flash_attention", q, k, v)
     B, L, H, D = q.shape
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
@@ -202,7 +207,7 @@ def _bwd_launch(name: str, fn, q, k, v, dout, lse, delta, outs, causal: bool) ->
 
 
 def _check_16b_aligned(name: str, *ts: torch.Tensor) -> None:
-    """The bf16 backward kernels copy 16 bytes at a time: every base pointer
+    """The bf16 kernels (K1-K3) copy 16 bytes at a time: every base pointer
     and every (b, l, h) stride must be a multiple of 16 bytes."""
     for t in ts:
         es = t.element_size()

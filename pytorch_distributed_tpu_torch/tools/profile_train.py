@@ -29,9 +29,9 @@ from pytorch_distributed_tpu_torch.train.lm import SyntheticTokenDataset, make_l
 from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
-# Substrings of the flash kernels' names; training is bf16, so K2 and K3
-# are their tensor-core instantiations.
-FLASH_KERNELS = {"K1": "flash_fwd_kernel", "K2": "flash_bwd_dq_mma_kernel",
+# Substrings of the flash kernels' names; training is bf16, so K1, K2 and
+# K3 are their tensor-core instantiations.
+FLASH_KERNELS = {"K1": "flash_fwd_mma_kernel", "K2": "flash_bwd_dq_mma_kernel",
                  "K3": "flash_bwd_dkv_mma_kernel"}
 # Substrings of cuBLAS's matrix-product kernel names on Hopper.
 GEMM_NAMES = ("nvjet", "gemm", "xmma", "cutlass")

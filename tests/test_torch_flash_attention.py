@@ -5,7 +5,8 @@ The CUDA kernel itself runs only on the card; chip_smoke.py holds it against
 the same plain version there.  Tolerances: f32 2e-5 (both sides compute the
 same f32 online/plain softmax, only the summation order differs); bf16
 inputs 2e-2 (outputs are rounded to bf16, one ulp is up to ~1.6e-2 at the
-output magnitudes here).
+output magnitudes here).  The card's bf16 tolerance for the kernel is
+derived here from an emulation of its tensor-core arithmetic.
 """
 
 import jax.numpy as jnp
@@ -16,7 +17,9 @@ import torch
 from pytorch_distributed_tpu.ops.flash_attention import _flash_fwd
 from pytorch_distributed_tpu.parallel.ring import dense_attention as jax_dense
 from pytorch_distributed_tpu_torch.ops.flash_attention import (
+    NEG_INF,
     flash_attention,
+    flash_attention_reference,
     pick_attention_impl,
 )
 from pytorch_distributed_tpu_torch.parallel.ring import dense_attention
@@ -93,3 +96,47 @@ def test_pick_attention_impl_mirrors_jax_rule():
     assert pick_attention_impl(4096, 64, cpu) == "dense"
     # auto never picks the kernel for a head dim it does not take
     assert pick_attention_impl(4096, 32, cuda) == "dense"
+
+
+def _fwd_bf16_p(q, k, v, causal, block=64):
+    """The bf16 tensor-core kernel's arithmetic in plain PyTorch: per tile of
+    64 keys, f32 s and f32 running max and sum (the sum of the f32 p), p
+    rounded to bf16 before p . v (products of bf16 values summed in f32), O
+    rounded to bf16 at the end."""
+    B, L, H, D = q.shape
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # [B, H, L, D]
+    m = torch.full((B, H, L, 1), NEG_INF)
+    l = torch.zeros(B, H, L, 1)
+    acc = torch.zeros(B, H, L, D)
+    pos = torch.arange(L)
+    for j in range(0, L, block):
+        s = qf @ kf[:, :, j:j + block].transpose(-1, -2) * (1.0 / D ** 0.5)
+        if causal:
+            s = s.masked_fill(pos[j:j + block][None, :] > pos[:, None], NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.bfloat16().float() @ vf[:, :, j:j + block]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).bfloat16()
+
+
+@pytest.mark.parametrize("causal,L,D", [(True, 512, 64), (False, 512, 64), (False, 200, 128)])
+def test_bf16_p_rounding_inside_card_tolerance(causal, L, D):
+    """Basis of the card's bf16 tolerance for K1 (chip_smoke.py phase 2):
+    |kernel - plain| <= 4e-3 max|plain| + 1e-2 |plain| per element and a
+    relative Frobenius error <= 5e-3.  The kernel rounds p to bf16 before
+    p . v, where the plain version keeps p f32; both round O to bf16.
+    Emulated here (the ragged case with a last tile of 8 keys), the
+    difference uses under half of either bound: ~2.0e-3 to 2.4e-3 relative
+    Frobenius error, and at most ~0.47 of the elementwise bound."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, L, 2, D)).astype(np.float32)).bfloat16()
+               for _ in range(3))
+    plain = flash_attention_reference(q, k, v, causal)[0].float()
+    emulated = _fwd_bf16_p(q, k, v, causal).float()
+    err = (emulated - plain).abs()
+    bound = 0.5 * (4e-3 * plain.abs().max() + 1e-2 * plain.abs())
+    assert bool((err <= bound).all()), f"{(err / bound).max():.3f}x half the bound"
+    frob = ((emulated - plain).norm() / plain.norm()).item()
+    assert frob <= 2.5e-3, f"relative Frobenius error {frob:.3e}"

@@ -19,6 +19,9 @@ Weights cross as HWIO -> OIHW.  Tolerances:
   sums in another order.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -162,9 +165,32 @@ def test_plane_rule_matches_jax():
                         == jfc.conv3x3_plane_fits_vmem(h, h, ci, co, itemsize))
 
 
+def test_bf16_width_limit_matches_the_kernel_and_spares_folded_planes():
+    """``_TC_MAX_W`` is the widest plane whose wgrad halo ring fits the
+    kernel's shared memory (``wgrad3_smem`` against ``MAX_SMEM``, read from
+    the source), and every square plane the slot rule folds lies inside it."""
+    src = (Path(tfc.__file__).parent.parent / "csrc" / "fused_conv_bn_bwd.cu").read_text()
+    c = {k: int(re.search(rf"constexpr \w+ {k} = (\d+);", src).group(1))
+         for k in ("TC_ROW", "WG_SC", "WG_ST", "MAX_SMEM")}
+    yb = c["WG_SC"] * c["TC_ROW"]
+
+    def smem(w):  # 1024 bytes to align the tiles, the stages, the zero row and (s, t, u, v)
+        return (1024 + c["WG_ST"] * (2 * yb + (c["WG_SC"] + 2 * w + 2) * c["TC_ROW"])
+                + c["TC_ROW"] + 1024)
+
+    assert smem(tfc._TC_MAX_W) <= c["MAX_SMEM"] < smem(tfc._TC_MAX_W + 1)
+    for ch in (64, 128, 256, 512):
+        for w in range(tfc._TC_MAX_W + 1, 4 * tfc._TC_MAX_W):
+            assert not tfc.conv3x3_plane_fits_vmem(w, w, ch, ch, 2)
+
+
 def test_wgrad_split_covers_every_row():
+    """Both split rules: the CUDA-core wgrad's (16-pixel chunks) and the
+    bf16 3x3 tensor-core wgrad's (128-pixel chunks, all taps in a CTA)."""
     for M, ci, co, taps in ((802_816, 256, 64, 1), (802_816, 64, 64, 9),
-                            (12_544, 2048, 512, 1), (297, 70, 33, 9), (1, 8, 8, 1)):
-        splits, rows = tfc._wgrad_split(M, ci, co, taps)
-        assert 1 <= splits <= 65535 and rows % 16 == 0
-        assert (splits - 1) * rows < M <= splits * rows
+                            (12_544, 2048, 512, 1), (297, 70, 33, 9), (1, 8, 8, 1),
+                            (12_544, 512, 512, 9), (50_176, 256, 256, 9)):
+        for tensor_cores, chunk in ((False, 16), (True, 128)):
+            splits, rows = tfc._wgrad_split(M, ci, co, taps, tensor_cores=tensor_cores)
+            assert 1 <= splits <= 65535 and rows % chunk == 0
+            assert (splits - 1) * rows < M <= splits * rows
