@@ -34,13 +34,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    L=4096, f32, through the kernels and through dense attention: they must
    agree;
 8. hold the fused conv -> BN backward kernels (K4 1x1, K5 3x3) against
-   their plain version at the ResNet-50 b256 bf16 shapes with the most
-   bytes (K4: stage 1, 256->64 and 64->256; K5: the 56x56x64 and 7x7x512
-   planes), at a ragged bf16 3x3 shape and at ragged f32 shapes (relu on
-   and off), check that two runs at K5's path shape give identical bits,
-   and time each kernel (with its TFLOP/s and share of its bound), the
-   plain version and cuDNN's convolution backward after dy formed in
-   PyTorch (a yardstick only: the port never calls it);
+   their plain version at ResNet-50 b256 bf16 shapes (K4: all twelve 1x1
+   shapes of the image path, 64->64, 64->256, 256->64 and 256->128 at
+   56x56, 128->512, 512->128 and 512->256 at 28x28, 256->1024, 1024->256
+   and 1024->512 at 14x14, 2048->512 and 512->2048 at 7x7; K5: all four
+   3x3 planes), at the non-square planes the slot rule folds (64x112x64,
+   1x2656x64, 1x1219x256), at ragged bf16 shapes and at ragged f32 shapes
+   (relu on and off), check that two runs of every bf16 case give
+   identical bits, and time each kernel (with its TFLOP/s and share of its
+   bound), the plain version and cuDNN's convolution backward after dy
+   formed in PyTorch (a yardstick only: the port never calls it); sum K4's
+   times and bounds over one image step's 33 launches;
 9. drive the image training path through ``recipes.tpu_native`` with
    ``-a resnet50 --synthetic --fused-convbn -b 256 --image-size 224``, bf16,
    for 8 train steps and 1 eval batch of 204 samples padded to 256: every
@@ -48,7 +52,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    loss be finite;
 10. one f32 training step (TF32 off) of ResNet-50 at batch 8, fused and
     unfused, from the same weights: loss, every gradient and the updated
-    running statistics must agree.
+    running statistics must agree;
+11. time the bf16 ResNet-50 b256 224x224 training step fused and unfused
+    (f32 weights, the same seeded weights and synthetic batches, copied to
+    the card beforehand): 2 warm-up steps, then the median of 7 steps, each
+    closed by a synchronise.  A measurement only: it fails nothing.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
@@ -66,6 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch import models
+from pytorch_distributed_tpu_torch.data import DataLoader, SyntheticImageDataset
 from pytorch_distributed_tpu_torch.models.generate import generate, greedy_generate
 from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
 from pytorch_distributed_tpu_torch.ops import _build
@@ -482,8 +491,8 @@ def main() -> int:
     # from bn_bwd_vectors on the batch statistics of y, as on the path, so
     # the ReLU mask is live.  Tolerances: dy is formed with the same
     # roundings on both sides and the products differ in summation order
-    # only (K5's bf16 products run on the tensor cores, bf16 x bf16 exact in
-    # f32 and summed in f32, so only the order changes there too), so a
+    # only (bf16 products run on the tensor cores, bf16 x bf16 exact in f32
+    # and summed in f32, so only the order changes there too), so a
     # bf16 da may round one ulp (2^-8 relative) apart: rtol 1e-2,
     # atol 1e-3 of max|ref| for entries near zero; dW is f32 on both sides,
     # sums of up to 802,816 terms in another order: atol 1e-4 of max|ref|,
@@ -493,6 +502,27 @@ def main() -> int:
         dict(name="k4_path", ks=1, N=256, H=56, W=56, Ci=256, Co=64, dtype=bf16, relu=True),
         dict(name="k4_64_256", ks=1, N=256, H=56, W=56, Ci=64, Co=256, dtype=bf16,
              relu=False),
+        dict(name="k4_256_128", ks=1, N=256, H=56, W=56, Ci=256, Co=128, dtype=bf16,
+             relu=True),
+        dict(name="k4_512_128", ks=1, N=256, H=28, W=28, Ci=512, Co=128, dtype=bf16,
+             relu=False),
+        dict(name="k4_1024_256", ks=1, N=256, H=14, W=14, Ci=1024, Co=256, dtype=bf16,
+             relu=True),
+        dict(name="k4_2048_512", ks=1, N=256, H=7, W=7, Ci=2048, Co=512, dtype=bf16,
+             relu=False),
+        dict(name="k4_512_2048", ks=1, N=256, H=7, W=7, Ci=512, Co=2048, dtype=bf16,
+             relu=True),
+        dict(name="k4_64_64", ks=1, N=256, H=56, W=56, Ci=64, Co=64, dtype=bf16, relu=True),
+        dict(name="k4_128_512", ks=1, N=256, H=28, W=28, Ci=128, Co=512, dtype=bf16,
+             relu=True),
+        dict(name="k4_512_256", ks=1, N=256, H=28, W=28, Ci=512, Co=256, dtype=bf16,
+             relu=True),
+        dict(name="k4_256_1024", ks=1, N=256, H=14, W=14, Ci=256, Co=1024, dtype=bf16,
+             relu=False),
+        dict(name="k4_1024_512", ks=1, N=256, H=14, W=14, Ci=1024, Co=512, dtype=bf16,
+             relu=True),
+        dict(name="k4_ragged_bf16", ks=1, N=3, H=9, W=11, Ci=70, Co=33, dtype=bf16,
+             relu=True),
         dict(name="k5_path", ks=3, N=256, H=56, W=56, Ci=64, Co=64, dtype=bf16, relu=True),
         dict(name="k5_28x28_128", ks=3, N=256, H=28, W=28, Ci=128, Co=128, dtype=bf16,
              relu=True),
@@ -502,6 +532,13 @@ def main() -> int:
              relu=True),
         dict(name="k5_ragged_bf16", ks=3, N=3, H=9, W=11, Ci=70, Co=33, dtype=bf16,
              relu=True),
+        # Non-square planes the slot rule folds: a 448 x 256 batch's stage
+        # 1, and the widest planes at h = 1 for 64 and 256 channels, which
+        # take the kernels' banded halo.
+        dict(name="k5_64x112", ks=3, N=8, H=64, W=112, Ci=64, Co=64, dtype=bf16, relu=True),
+        dict(name="k5_1x2656", ks=3, N=4, H=1, W=2656, Ci=64, Co=64, dtype=bf16, relu=True),
+        dict(name="k5_1x1219", ks=3, N=2, H=1, W=1219, Ci=256, Co=256, dtype=bf16,
+             relu=False),
         dict(name="k4_ragged_relu", ks=1, N=3, H=9, W=11, Ci=70, Co=33,
              dtype=torch.float32, relu=True),
         dict(name="k4_ragged", ks=1, N=3, H=9, W=11, Ci=70, Co=33,
@@ -534,7 +571,7 @@ def main() -> int:
         e_da, ok_da = _agree(da, rda, atol, rtol)
         e_dw, ok_dw = _agree(dw, rdw, 1e-4 if dt == bf16 else 1e-5, 1e-3 if dt == bf16 else 1e-4)
         same = None
-        if ks == 3 and dt == bf16:
+        if dt == bf16:
             da2, dw2 = kernel(*args)
             same = torch.equal(da, da2) and torch.equal(dw, dw2)
             del da2, dw2
@@ -567,18 +604,15 @@ def main() -> int:
             raise SystemExit("fused conv-BN kernel gave different bits on a rerun")
         del y, do, a, w, wc, a_nchw, args
     torch.cuda.empty_cache()
-    # A bf16 plane too wide for the tensor-core kernel's shared memory
-    # raises: there is no other bf16 3x3 kernel to fall back to.
-    wide = torch.zeros(1, 2, 107, 8, device=dev, dtype=bf16)
-    vec8 = torch.zeros(8, device=dev)
-    try:
-        fused_dgrad_wgrad_3x3(wide, wide, wide, torch.zeros(8, 8, 3, 3, device=dev),
-                              vec8, vec8, vec8, vec8, True)
-    except ValueError as e:
-        print(f"[conv-bn kernel] bf16 3x3 plane 107 wide refused: {e}")
-    else:
-        raise SystemExit("K5 took a bf16 plane wider than its kernel supports")
-    del wide, vec8
+    k4_per_step = {"k4_64_64": 1, "k4_64_256": 4, "k4_path": 2, "k4_256_128": 1,
+                   "k4_128_512": 4, "k4_512_128": 3, "k4_512_256": 1, "k4_256_1024": 6,
+                   "k4_1024_256": 5, "k4_1024_512": 1, "k4_512_2048": 3, "k4_2048_512": 2}
+    k4_step = {key: sum(n * conv[name][key] for name, n in k4_per_step.items())
+               for key in ("ms", "bound_ms", "library_ms")}
+    print(f"[conv-bn kernel] K4 over one ResNet-50 b256 bf16 step "
+          f"({sum(k4_per_step.values())} launches, phase 8's times): kernel {k4_step['ms']} ms, "
+          f"bound {k4_step['bound_ms']} ms ({100 * k4_step['bound_ms'] / k4_step['ms']}%), "
+          f"dy + cuDNN backward {k4_step['library_ms']} ms")
 
     # 9. the image training path at full ResNet-50 width, through the recipe
     steps, per_step = 8, (33, 13)
@@ -658,6 +692,38 @@ def main() -> int:
     del runs, gf, gu, bf, bu
     torch.cuda.empty_cache()
 
+    # 11. fused vs unfused bf16 image step time, both in this call.
+    tb, warm, timed = 256, 2, 7
+    host = list(DataLoader(SyntheticImageDataset(tb * (warm + timed), image_size=224), tb,
+                           num_workers=4, drop_last=True))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in host]
+    del host
+    step_ms, weights = {}, None
+    for fused in (True, False):
+        model = models.create_model("resnet50", dtype=torch.bfloat16, fused_convbn=fused,
+                                    device=dev)
+        if weights is None:
+            model.init_weights(torch.Generator(device=dev).manual_seed(0))
+            weights = {k: t.clone() for k, t in model.state_dict().items()}
+        else:
+            model.load_state_dict(weights)
+        step = make_train_step(model, sgd(model.parameters(), 0.1))
+        times = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            step(batch, 0.1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms[fused] = statistics.median(times[warm:])
+        print(f"[image step] ResNet-50 {'fused' if fused else 'unfused'} B={tb} 224x224 bf16 "
+              f"compute, f32 weights: median {step_ms[fused]} ms of steps {warm + 1}-"
+              f"{warm + timed} (all {times}), {tb / step_ms[fused] * 1e3} images/s")
+        del model, step
+    del weights, batches
+    torch.cuda.empty_cache()
+    print(f"[image step] fused / unfused = {step_ms[True] / step_ms[False]} "
+          f"({step_ms[True]} / {step_ms[False]} ms); card {card}")
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
@@ -685,7 +751,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-10 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-11 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

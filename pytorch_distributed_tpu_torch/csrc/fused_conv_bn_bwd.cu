@@ -30,17 +30,19 @@
 //   product is its own kernel: dgrad tiles (pixels, Ci) and loops over
 //   (taps, Co); wgrad tiles (Co, Ci) (per tap, or all taps in the bf16 3x3
 //   kernel) and loops over a slice of the pixels.  dy is recomputed from
-//   (y, dout, vec) in the prologue of every chunk each product loads, and
-//   never written to device memory: that is the fold.
+//   (y, dout, vec) for every chunk each product loads, and never written
+//   to device memory: that is the fold.  So the two kernels read y and dout
+//   once each: 1.2x the bound's bytes at 256->64, 1.8x at 64->256 (below).
 // - dW is reduced across the grid in two deterministic passes: each of
 //   `splits` pixel slices writes an f32 partial [taps, Co, Ci] to scratch
 //   the wrapper allocates, and a second kernel sums the partials in slice
 //   order.  No atomics, so dW is the same bit for bit on every run (the
 //   precedent of the flash backward kernels).  The wrapper picks the split
-//   count: for the CUDA-core wgrad about 4 CTAs per SM in flight on 132
-//   SMs, with at least 256 pixels per slice; for the bf16 3x3 tensor-core
-//   wgrad (one CTA per SM) about two full waves.  At ResNet-50 b256 the
-//   scratch stays under 40 MB.
+//   count from the wgrad grid that `ptd_fused_conv_bn_wgrad_tiles` reports
+//   (CTAs per slice and pixel chunk): for the CUDA-core wgrad about 4 CTAs
+//   per SM in flight on 132 SMs, with at least 256 pixels per slice; for
+//   the bf16 tensor-core wgrads (one CTA per SM) about two full waves.  At
+//   ResNet-50 b256 the scratch stays under 40 MB.
 // - K5 does not tile whole planes (a 56x56x64 bf16 plane is 401 KB per
 //   tensor).  It is an implicit GEMM over pixel tiles of the flattened
 //   (n, h, w) order: each tap's source pixel is computed per row, and a
@@ -61,17 +63,40 @@
 // Bound.  At the largest ResNet-50 b256 bf16 K4 shape (M = 802,816 pixels,
 // Ci = 256, Co = 64) the fold must read y, dout (M*Co each) and a (M*Ci) and
 // write da (M*Ci): 1.03 GB, 0.31 ms at 3.35 TB/s, against 4*M*Ci*Co =
-// 5.3e10 FLOP, 0.053 ms at 989 TFLOP/s bf16.  K4 is byte-bound at most
-// ResNet-50 shapes, K5 (9x the FLOP per byte) operation-bound.
+// 5.3e10 FLOP, 0.053 ms at 989 TFLOP/s bf16.  Every ResNet-50 K4 launch does
+// those 5.3e10 FLOP (1.05e11 at 1024->512); the 33 launches of a b256 step
+// are bound by bytes down to stage 3 and by operations at stage 4, 4.81 ms
+// in all (chip_smoke.py's bound).  K5 (9x the FLOP per byte) is
+// operation-bound.
 //
-// Two designs, by instantiation:
-// - f32 (K4 and K5) and bf16 K4: the CUDA cores in f32, 64x64 output
-//   tiles, 256 threads with 4x4 register microtiles, 16-deep chunks staged
-//   in shared memory, bf16 inputs widened to f32 on load (a product of two
-//   bf16 values is exact in f32, so this is the tensor cores' bf16 x bf16
-//   -> f32 arithmetic in another summation order).  Its ceiling is the f32
-//   FMA rate.  Registers (-Xptxas -v, nvcc 12.8): 64 for dgrad, 80 for
-//   wgrad, 32 for sum_splits; 8704 bytes of static shared memory.
+// Three designs, by instantiation:
+// - f32 (K4 and K5): the CUDA cores, 64x64 output tiles, 256 threads with
+//   4x4 register microtiles, 16-deep chunks staged in shared memory.  Its
+//   ceiling is the f32 FMA rate; it serves the f32 checks.  Registers
+//   (-Xptxas -v, nvcc 12.8): 64 for dgrad, 80 for wgrad, 32 for sum_splits;
+//   8704 bytes of static shared memory.
+// - bf16 K4 (`dgrad1_mma_kernel`, `wgrad1_mma_kernel`): the tensor cores
+//   through warpgroup wgmma (m64nNk16, f32 accumulate, N = 64, 128 or 256
+//   by the channel count), both operands read by 128-byte-swizzle
+//   descriptors: a 1x1 conv has no halo, so every operand is a plain tile.
+//   dgrad (da = dy . W): A the dy tile, K-major; B the W tile, MN-major;
+//   persistent CTAs of 2 warpgroups walk (128-pixel tile, 64-channel chunk
+//   of Co) items through a 3-stage cp.async ring that runs across tile
+//   boundaries, and each tile's da leaves through shared memory in 16-byte
+//   rows.  wgrad (dW^T = a^T . dy over pixel slices): A the a tile, B the dy
+//   tile, both MN-major; a CTA of 2 warpgroups holds a 128 (ci) x N (co)
+//   tile over 64-pixel chunks in a 2- or 3-stage ring.  Both form dy in
+//   place of the y tile, which costs more than the products: a thread keeps
+//   its 8 channels' (s, t, u, v) in registers and converts its rows with
+//   their loads in flight together.  Channel tiles that share pixels are
+//   adjacent in launch order, so that repeated reads of y, dout and a come
+//   from L2.  Registers: 109-110 / 150 / 244-252 for dgrad and 109-111 /
+//   149-153 / 202-208 for wgrad at N = 64 / 128 / 256, no spills.  On an
+//   H100, 59% of the byte bound at 256->64 and 30% at 64->256, where dy is
+//   formed twice and y and dout read twice; 9.5-15% at stages 3-4, where dy
+//   is formed once per 256 input channels (dgrad) or 128 (wgrad): the
+//   conversion's instructions, not the bytes or the products, bound them
+//   (PERF.md).
 // - bf16 K5 (`dgrad3_mma_kernel`, `wgrad3_mma_kernel`): the tensor cores,
 //   through warpgroup wgmma (m64nNk16, f32 accumulate) with the A operand
 //   in registers.  A tap's shifted operand is the halo tile shifted by the
@@ -83,22 +108,29 @@
 //   A fragments at no cost, and the other operand, a plain tile, is read
 //   by a descriptor.  dgrad's A is the shifted dy halo and its B the tap's
 //   W tile (MN-major); wgrad computes dW^T, A the shifted a halo (loaded
-//   transposed) and B the chunk's dy tile (MN-major).  Products of bf16
-//   values are exact in f32 and summed in f32, and dy is formed with the
-//   plain version's roundings, so only the summation order differs from
-//   the CUDA-core kernels.  dgrad computes dy once per 64-channel chunk
-//   for its 128 pixels and their halo and reads the 9 taps from it; W
-//   streams through a ring of tap tiles copied two steps ahead.  wgrad
-//   keeps all 9 taps of a 64 x 64 (ci, co) tile in one CTA (3 warpgroups),
-//   so dy and a are read once per 128-pixel chunk for all taps.  Fragments
-//   are written, and loops close, only with no wgmma in flight: ptxas
-//   serialises every wgmma otherwise (C7513, C7515).  See the kernels for
-//   their layouts.  Registers: 80 (dgrad, 64 channels a CTA), 128 (128
-//   channels), 168 (wgrad).  On an H100, 19% of the bound at 56x56x64,
-//   22% at 28x28x128 and 14x14x256 and 17% at 7x7x512, slower than dy +
-//   cuDNN there (PERF.md): the dy prologues and the copies are not hidden
-//   behind the products.  wgrad's ring of halo tiles caps bf16 planes at
-//   106 pixels wide; wider ones are refused.
+//   transposed) and B the chunk's dy tile (MN-major).  dgrad computes dy
+//   once per 64-channel chunk for its 128 pixels and their halo and reads
+//   the 9 taps from it; W streams through a ring of tap tiles copied two
+//   steps ahead.  wgrad keeps all 9 taps of a 64 x 64 (ci, co) tile in one
+//   CTA (3 warpgroups), so dy and a are read once per 128-pixel chunk for
+//   all taps.  The halo is the contiguous rows from W + 1 before a tile to
+//   W + 1 after it while wgrad's ring of three such halos fits (W <= 106,
+//   every ResNet-50 plane); wider planes stage only the three bands of 130
+//   rows the taps touch (from W + 1 before, 1 before and W - 1 after the
+//   tile), a footprint independent of W, with two stages of a in wgrad (a
+//   third does not fit), so every plane the slot rule folds runs (up to
+//   2656 pixels wide at h = 1).  Fragments are written, and loops close,
+//   only with no wgmma in flight: ptxas serialises every wgmma otherwise
+//   (C7513, C7515).  See the kernels for their layouts.  Registers: 80
+//   (dgrad, 64 channels a CTA), 128 (128 channels), 168 (wgrad); the
+//   banded wgrad spills 16 bytes, the banded element-wise dgrad 64.  On an
+//   H100, 19% of the bound at 56x56x64, 22% at 28x28x128 and 14x14x256 and
+//   17% at 7x7x512, slower than dy + cuDNN at 7x7x512 (PERF.md): the dy
+//   prologues and the copies are not hidden behind the products.
+//
+// Products of bf16 values are exact in f32 and summed in f32, and dy is
+// formed with the plain version's roundings, so the bf16 kernels differ
+// from the plain version in summation order only.
 
 #include "hopper_mma.cuh"
 
@@ -112,15 +144,6 @@ constexpr int SROW = TN + 4;   // padded shared row
 
 static_assert(TM == TN && TM == 4 * 16 && NT == 16 * 16 && TK * TN == 4 * NT,
               "each thread owns a 4x4 microtile and stages 4 elements per chunk");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Pixel geometry of the flattened (n, h, w) rows.  For 1x1 the wrapper
 // passes H = W = 1: every shift is zero and only m < M matters.
@@ -139,20 +162,17 @@ __device__ __forceinline__ int shifted(int m, int dh, int dw, const Geo& g) {
   return m + dh * g.W + dw;
 }
 
-// dy at element `off` (channel c) of y/dout, rounded to T.  The operations
-// are rounded one by one, in the plain version's order, so that no fused
-// multiply-add moves a bf16 rounding boundary.
-template <typename T>
-__device__ __forceinline__ float dy_elem(const T* __restrict__ y, const T* __restrict__ dout,
+// dy at element `off` (channel c) of f32 y/dout.  The operations are rounded
+// one by one, in the plain version's order: no fused multiply-add.
+__device__ __forceinline__ float dy_elem(const float* __restrict__ y,
+                                         const float* __restrict__ dout,
                                          const float* __restrict__ vec, int Co, int64_t off,
                                          int c, int relu) {
-  const float yf = to_f32(y[off]);
-  float dof = to_f32(dout[off]);
+  const float yf = y[off];
+  float dof = dout[off];
   const float s = vec[c];
   if (relu && !(__fadd_rn(__fmul_rn(yf, s), vec[3 * Co + c]) > 0.f)) dof = 0.f;
-  const float d = __fadd_rn(__fadd_rn(__fmul_rn(dof, s), __fmul_rn(yf, vec[Co + c])),
-                            vec[2 * Co + c]);
-  return to_f32(from_f32<T>(d));
+  return __fadd_rn(__fadd_rn(__fmul_rn(dof, s), __fmul_rn(yf, vec[Co + c])), vec[2 * Co + c]);
 }
 
 // The same dy from f32 y and dout and the channel's (s, t, u, v), before
@@ -183,10 +203,11 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[4][4], const float (*As)[
 // dgrad: one CTA per (64 pixels, 64 input channels); loops over taps and
 // 16-channel chunks of Co.  dy of a tap is read at the pixel the tap maps
 // onto this one: (h + 1 - kh, w + 1 - kw) for 3x3.
-template <typename T, int KS>
+template <int KS>
 __global__ void __launch_bounds__(NT)
-dgrad_kernel(const T* __restrict__ y, const T* __restrict__ dout, const float* __restrict__ vec,
-             const T* __restrict__ wt, T* __restrict__ da, Geo g, int Ci, int Co, int relu) {
+dgrad_kernel(const float* __restrict__ y, const float* __restrict__ dout,
+             const float* __restrict__ vec, const float* __restrict__ wt, float* __restrict__ da,
+             Geo g, int Ci, int Co, int relu) {
   __shared__ float As[TK][SROW];  // dy, [co][pixel]
   __shared__ float Bs[TK][SROW];  // W, [co][ci]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -196,7 +217,7 @@ dgrad_kernel(const T* __restrict__ y, const T* __restrict__ dout, const float* _
   float acc[4][4] = {};
   for (int tap = 0; tap < KS * KS; ++tap) {
     const int src = shifted(m0 + ar, KS / 2 - tap / KS, KS / 2 - tap % KS, g);
-    const T* wtap = wt + (int64_t)tap * Co * Ci;
+    const float* wtap = wt + (int64_t)tap * Co * Ci;
     for (int k0 = 0; k0 < Co; k0 += TK) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -205,7 +226,7 @@ dgrad_kernel(const T* __restrict__ y, const T* __restrict__ dout, const float* _
                              ? dy_elem(y, dout, vec, Co, (int64_t)src * Co + co, co, relu)
                              : 0.f;
         const int kr = k0 + bk, ci = c0 + bc + e;
-        Bs[bk][bc + e] = (kr < Co && ci < Ci) ? to_f32(wtap[(int64_t)kr * Ci + ci]) : 0.f;
+        Bs[bk][bc + e] = (kr < Co && ci < Ci) ? wtap[(int64_t)kr * Ci + ci] : 0.f;
       }
       __syncthreads();
       mma_chunk(acc, As, Bs, ty, tx);
@@ -219,7 +240,7 @@ dgrad_kernel(const T* __restrict__ y, const T* __restrict__ dout, const float* _
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int ci = c0 + tx + 16 * j;
-      if (ci < Ci) da[(int64_t)m * Ci + ci] = from_f32<T>(acc[i][j]);
+      if (ci < Ci) da[(int64_t)m * Ci + ci] = acc[i][j];
     }
   }
 }
@@ -228,11 +249,11 @@ dgrad_kernel(const T* __restrict__ y, const T* __restrict__ dout, const float* _
 // slice); loops over the slice's pixels 16 at a time.  a of a tap is read
 // at (h + kh - 1, w + kw - 1) for 3x3.  Writes the slice's f32 partial
 // [tap][co][ci] at out + slice * taps * Co * Ci.
-template <typename T, int KS>
+template <int KS>
 __global__ void __launch_bounds__(NT)
-wgrad_kernel(const T* __restrict__ y, const T* __restrict__ dout, const float* __restrict__ vec,
-             const T* __restrict__ a, float* __restrict__ out, Geo g, int Ci, int Co, int relu,
-             int rows_per_split) {
+wgrad_kernel(const float* __restrict__ y, const float* __restrict__ dout,
+             const float* __restrict__ vec, const float* __restrict__ a, float* __restrict__ out,
+             Geo g, int Ci, int Co, int relu, int rows_per_split) {
   __shared__ float As[TK][SROW];  // dy, [pixel][co]
   __shared__ float Bs[TK][SROW];  // shifted a, [pixel][ci]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -254,7 +275,7 @@ wgrad_kernel(const T* __restrict__ y, const T* __restrict__ dout, const float* _
       As[lk][lc + e] =
           (live && co < Co) ? dy_elem(y, dout, vec, Co, (int64_t)m * Co + co, co, relu) : 0.f;
       const int ci = ci0 + lc + e;
-      Bs[lk][lc + e] = (src >= 0 && ci < Ci) ? to_f32(a[(int64_t)src * Ci + ci]) : 0.f;
+      Bs[lk][lc + e] = (src >= 0 && ci < Ci) ? a[(int64_t)src * Ci + ci] : 0.f;
     }
     __syncthreads();
     mma_chunk(acc, As, Bs, ty, tx);
@@ -284,28 +305,33 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, float* __restr
   }
 }
 
-template <typename T, int KS>
-cudaError_t launch(const void* y, const void* dout, const void* a, const void* wt,
-                   const void* vec, void* da, void* dw, void* scratch, Geo g, int Ci, int Co,
-                   int relu, int splits, int rows_per_split, cudaStream_t stream) {
-  const T* yp = static_cast<const T*>(y);
-  const T* gp = static_cast<const T*>(dout);
+cudaError_t sum_splits(const float* part, float* dw, int64_t size, int splits,
+                       cudaStream_t stream) {
+  const int blocks = (int)((size + 255) / 256 < 4096 ? (size + 255) / 256 : 4096);
+  sum_splits_kernel<<<blocks, 256, 0, stream>>>(part, dw, size, splits);
+  return cudaGetLastError();
+}
+
+// f32 K4 (KS = 1) and K5 (KS = 3): the CUDA-core kernels.
+template <int KS>
+cudaError_t launch_f32(const void* y, const void* dout, const void* a, const void* wt,
+                       const void* vec, void* da, void* dw, void* scratch, Geo g, int Ci, int Co,
+                       int relu, int splits, int rows_per_split, cudaStream_t stream) {
+  const float* yp = static_cast<const float*>(y);
+  const float* gp = static_cast<const float*>(dout);
   const float* vp = static_cast<const float*>(vec);
   const dim3 dgrid((g.M + TM - 1) / TM, (Ci + TN - 1) / TN);
-  dgrad_kernel<T, KS><<<dgrid, NT, 0, stream>>>(yp, gp, vp, static_cast<const T*>(wt),
-                                                static_cast<T*>(da), g, Ci, Co, relu);
+  dgrad_kernel<KS><<<dgrid, NT, 0, stream>>>(yp, gp, vp, static_cast<const float*>(wt),
+                                             static_cast<float*>(da), g, Ci, Co, relu);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   float* part = splits > 1 ? static_cast<float*>(scratch) : static_cast<float*>(dw);
   const dim3 wgrid(((Ci + TN - 1) / TN) * ((Co + TM - 1) / TM), KS * KS, splits);
-  wgrad_kernel<T, KS><<<wgrid, NT, 0, stream>>>(yp, gp, vp, static_cast<const T*>(a), part, g,
-                                                Ci, Co, relu, rows_per_split);
+  wgrad_kernel<KS><<<wgrid, NT, 0, stream>>>(yp, gp, vp, static_cast<const float*>(a), part, g,
+                                             Ci, Co, relu, rows_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const int64_t size = (int64_t)KS * KS * Co * Ci;
-  const int blocks = (int)((size + 255) / 256 < 4096 ? (size + 255) / 256 : 4096);
-  sum_splits_kernel<<<blocks, 256, 0, stream>>>(part, static_cast<float*>(dw), size, splits);
-  return cudaGetLastError();
+  return sum_splits(part, static_cast<float*>(dw), (int64_t)KS * KS * Co * Ci, splits, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -329,6 +355,8 @@ constexpr int WG_NT = 3 * 128;            // wgrad: a warpgroup per kernel row
 constexpr int WG_SC = 128;                 // wgrad: pixels per chunk
 constexpr int WG_ST = 3;                   // wgrad: stages of the ring of chunks
 constexpr int WG_YB = WG_SC * TC_ROW;      // wgrad: bytes of a chunk's y (or dout) tile
+constexpr int BAND_ROWS = WG_SC + 2;       // wide planes: rows of one halo band
+constexpr int BAND_BYTES = BAND_ROWS * TC_ROW;
 constexpr size_t MAX_SMEM = 232448;        // a CTA's shared memory on sm_90
 
 __device__ __forceinline__ uint32_t rsw(int r, int c) {
@@ -344,6 +372,10 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, const uint32_t (&v)[
 // which go through the async proxy.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v));
 }
 
 __device__ __forceinline__ void ld_shared_v4(uint32_t (&v)[4], uint32_t addr) {
@@ -468,15 +500,18 @@ __device__ __forceinline__ void load_vec(float* sv, const float* __restrict__ ve
 // dgrad on wgmma: one CTA per (DW_TM pixels, 64 * NB input channels),
 // DW_G warpgroups, warpgroup g owning 64 of the pixels and all 64 * NB
 // channels in f32 accumulators.  Per 64-channel chunk of Co, dy is computed
-// once for the tile and its halo (W + 1 rows above and below) into shared
-// memory.  Each tap's A operand is that halo shifted by the tap's offset,
+// once for the tile and its halo into shared memory: the contiguous rows
+// [m0 - W - 1, m0 + DW_TM + W + 1), or where BAND (wide planes) only the
+// three bands of BAND_ROWS rows the taps touch, from m0 - W - 1, m0 - 1 and
+// m0 + W - 1, so that the footprint does not grow with W.  Each tap's A
+// operand is that halo shifted by the tap's offset,
 // loaded into register fragments by ldmatrix (a row per lane, so an
 // out-of-image row names the zero row); its B operand is the tap's W
 // [64 co x 64 NB ci] tile, read MN-major by the wgmma descriptor.  The W
 // tiles of the (chunk, tap) steps stream through a ring of 4 slots, copied
 // two steps ahead; a step's products run while the copies of a later step
 // are issued.
-template <bool V, int NB>
+template <bool V, int NB, bool BAND>
 __global__ void __launch_bounds__(128 * DW_G, NB == 1 ? 3 : V ? 2 : 1)
 dgrad3_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
                   const float* __restrict__ vec, const bf16* __restrict__ wt,
@@ -484,7 +519,7 @@ dgrad3_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int NT = 128 * DW_G;
   constexpr uint32_t SLOT = NB * TAP_BYTES;      // one step's W: NB blocks [co][64 ci]
-  const int HR = DW_TM + 2 * g.W + 2;
+  const int HR = BAND ? 3 * BAND_ROWS : DW_TM + 2 * g.W + 2;
   const uint32_t sW = aligned_smem(smem);        // the ring of W slots
   const uint32_t sZ = sW + DG_WS * SLOT;         // a row of zeros
   float* sv = reinterpret_cast<float*>(smem + (sZ + TC_ROW - smem_u32(smem)));
@@ -532,15 +567,24 @@ dgrad3_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
       __syncthreads();  // every warp has read the previous chunk's halo and vectors
       load_vec<NT>(sv, vec, Co, co0);
       __syncthreads();
-      fill_dy<V, NT>(sH, y, dout, sv, Co, co0, h0, HR, 0, g.M, relu);
+      if constexpr (BAND) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          fill_dy<V, NT>(sH + b * BAND_BYTES, y, dout, sv, Co, co0, m0 + (b - 1) * g.W - 1,
+                         BAND_ROWS, 0, g.M, relu);
+      } else {
+        fill_dy<V, NT>(sH, y, dout, sv, Co, co0, h0, HR, 0, g.M, relu);
+      }
     }
     cp_async_wait_1();  // this step's W tile has landed (this thread's copies)
     __syncthreads();    // everyone's copies; at tap 0 the halo is written
     // dgrad reads dy at (h + 1 - kh, w + 1 - kw) for tap (kh, kw).
     const int dh = 1 - tap / 3, dw = 1 - tap % 3;
     const bool ok = pr + dh >= 0 && pr + dh < g.H && pq + dw >= 0 && pq + dw < g.W;
-    const int hr = mr + g.W + 1 + dh * g.W + dw;
-    const uint32_t arow = ok ? sH + hr * TC_ROW : sZ;
+    // The row in the halo, or in band dh + 1 (whose rows are swizzled by
+    // their index inside the band).
+    const int hr = BAND ? mr + 1 + dw : mr + g.W + 1 + dh * g.W + dw;
+    const uint32_t arow = ok ? sH + (BAND ? (dh + 1) * BAND_BYTES : 0) + hr * TC_ROW : sZ;
     const int ax = ok ? (hr & 7) : 0;
     uint32_t fa[4][4];
 #pragma unroll
@@ -580,27 +624,33 @@ dgrad3_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
 // row kh.  It computes dW^T: M = 64 input channels (16 per warp), N = 64
 // output channels, K = pixels.  Per 128-pixel chunk, y and dout are copied
 // into shared memory and turned into dy there (the B operand of every tap,
-// read MN-major by the descriptor), and a is copied once with its halo;
-// each tap's A operand is the halo shifted by the tap's offset, loaded
-// transposed into register fragments by ldmatrix (a row per lane, so an
-// out-of-image row names the zero row).  Chunks go through a ring of 3
-// stages: chunk ch + 2 is copied, and dy of chunk ch + 1 computed between
-// the products of chunk ch.  Writes the slice's f32 partial
-// [tap][co][ci] at out + slice * 9 * Co * Ci.
-template <bool V>
+// read MN-major by the descriptor), and a is copied once with its halo:
+// the contiguous rows [r0 - W - 1, r0 + 128 + W + 1), or where BAND (wide
+// planes) the three bands of BAND_ROWS rows from r0 - W - 1, r0 - 1 and
+// r0 + W - 1, one per kernel row.  Each tap's A operand is the halo shifted
+// by the tap's offset, loaded transposed into register fragments by
+// ldmatrix (a row per lane, so an out-of-image row names the zero row).  y
+// and dout go through a ring of 3 stages, a through A_ST: chunk ch + 2's y
+// and dout, and chunk ch + A_ST - 1's a, are copied, and dy of chunk ch + 1
+// computed, between the products of chunk ch.  The contiguous halo keeps 3
+// stages of a; the bands, 2 (3 would not fit).  Writes the slice's f32
+// partial [tap][co][ci] at out + slice * 9 * Co * Ci.
+template <bool V, bool BAND>
 __global__ void __launch_bounds__(WG_NT, 1)
 wgrad3_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
                   const float* __restrict__ vec, const bf16* __restrict__ a,
                   float* __restrict__ out, Geo g, int Ci, int Co, int relu,
                   int rows_per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int HA = WG_SC + 2 * g.W + 2;
+  constexpr int A_ST = BAND ? 2 : WG_ST;
+  const int HA = BAND ? 3 * BAND_ROWS : WG_SC + 2 * g.W + 2;
   // Stage st: dy (from y) at sDy + st * WG_YB (1024-aligned, for the
-  // descriptor), dout at sG + st * WG_YB, the a halo at sA + st * HA rows.
+  // descriptor), dout at sG + st * WG_YB; a stage ast: the a halo at sA +
+  // ast * HA rows.
   const uint32_t sDy = aligned_smem(smem);
   const uint32_t sG = sDy + WG_ST * WG_YB;
   const uint32_t sA = sG + WG_ST * WG_YB;
-  const uint32_t sZ = sA + WG_ST * HA * TC_ROW;     // a row of zeros
+  const uint32_t sZ = sA + A_ST * HA * TC_ROW;      // a row of zeros
   float* sv = reinterpret_cast<float*>(smem + (sZ + TC_ROW - smem_u32(smem)));
   const int n_ci = (Ci + 63) / 64;
   const int ci0 = (blockIdx.x % n_ci) * 64, co0 = (blockIdx.x / n_ci) * 64;
@@ -613,16 +663,33 @@ wgrad3_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
     const uint32_t z[4] = {0u, 0u, 0u, 0u};
     st_shared_v4(sZ + 16 * tid, z);
   }
-  auto load_chunk = [&](int ch) {
+  auto load_ydo = [&](int ch) {
     const int st = ch % WG_ST, r0 = mb + ch * WG_SC;
     load_rows<V, WG_NT>(sDy + st * WG_YB, y, r0, WG_SC, g.M, Co, co0);
     load_rows<V, WG_NT>(sG + st * WG_YB, dout, r0, WG_SC, g.M, Co, co0);
-    load_rows<V, WG_NT>(sA + st * HA * TC_ROW, a, r0 - (g.W + 1), HA, g.M, Ci, ci0);
+  };
+  auto load_a = [&](int ch) {
+    const uint32_t dst = sA + ch % A_ST * HA * TC_ROW;
+    const int r0 = mb + ch * WG_SC;
+    if constexpr (BAND) {
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        load_rows<V, WG_NT>(dst + b * BAND_BYTES, a, r0 + (b - 1) * g.W - 1, BAND_ROWS, g.M, Ci,
+                            ci0);
+    } else {
+      load_rows<V, WG_NT>(dst, a, r0 - (g.W + 1), HA, g.M, Ci, ci0);
+    }
   };
   load_vec<WG_NT>(sv, vec, Co, co0);
-  if (n_ch > 0) load_chunk(0);
+  if (n_ch > 0) {
+    load_ydo(0);
+    load_a(0);
+  }
   cp_async_commit();
-  if (n_ch > 1) load_chunk(1);
+  if (n_ch > 1) {
+    load_ydo(1);
+    if (A_ST > 2) load_a(1);
+  }
   cp_async_commit();
   cp_async_wait_1();
   __syncthreads();
@@ -637,12 +704,13 @@ wgrad3_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
 
   for (int ch = 0; ch < n_ch; ++ch) {
     const int r0 = mb + ch * WG_SC, st = ch % WG_ST;
-    const uint32_t dyb = sDy + st * WG_YB, ab = sA + st * HA * TC_ROW;
+    const uint32_t dyb = sDy + st * WG_YB, ab = sA + ch % A_ST * HA * TC_ROW;
     cp_async_wait_0();  // chunk ch + 1 has landed (this thread's copies)
-    // Everyone's copies of chunk ch + 1 have landed, dy of chunk ch is
-    // written, and every warpgroup is done with chunk ch - 1.
+    // Everyone's copies of chunk ch + 1 (and chunk ch's a) have landed, dy
+    // of chunk ch is written, and every warpgroup is done with chunk ch - 1.
     __syncthreads();
-    if (ch + 2 < n_ch) load_chunk(ch + 2);  // into the stage of chunk ch - 1
+    if (ch + 2 < n_ch) load_ydo(ch + 2);  // into the stage of chunk ch - 1
+    if (ch + A_ST - 1 < n_ch) load_a(ch + A_ST - 1);
     cp_async_commit();
     const int nst = (ch + 1) % WG_ST;
     // The image row and column of this lane's A row (a pixel) in each
@@ -674,8 +742,9 @@ wgrad3_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
         for (int t = 0; t < 3; ++t) {
           const int dw = t - 1;
           const bool ok = row_ok && pq + dw >= 0 && pq + dw < g.W;
-          const int hr = br + g.W + 1 + dh * g.W + dw;
-          const uint32_t base = ok ? ab + hr * TC_ROW : sZ;
+          // The row in the halo, or in band kh (swizzled by its index there).
+          const int hr = BAND ? br + 1 + dw : br + g.W + 1 + dh * g.W + dw;
+          const uint32_t base = ok ? ab + (BAND ? kh * BAND_BYTES : 0) + hr * TC_ROW : sZ;
           const int x = ok ? (hr & 7) : 0;
           ldsm_x4_t(fa[h][t], base + (((2 * wq + ((lane >> 3) & 1)) ^ x) << 4));
         }
@@ -716,74 +785,433 @@ wgrad3_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
   }
 }
 
-size_t dgrad3_smem(const Geo& g, int nb) {
-  return 1024 + DG_WS * nb * TAP_BYTES + TC_ROW + 1024 + (size_t)(DW_TM + 2 * g.W + 2) * TC_ROW;
+// Shared memory of the bf16 3x3 kernels: 1024 bytes to align the tiles,
+// the tiles, a zero row and 1024 bytes of (s, t, u, v).
+size_t dgrad3_smem(const Geo& g, int nb, bool band) {
+  const size_t halo = band ? 3 * BAND_ROWS : DW_TM + 2 * g.W + 2;
+  return 1024 + DG_WS * nb * TAP_BYTES + TC_ROW + 1024 + halo * TC_ROW;
 }
 
-size_t wgrad3_smem(const Geo& g) {
-  return 1024 + WG_ST * (2 * WG_YB + (size_t)(WG_SC + 2 * g.W + 2) * TC_ROW) + TC_ROW + 1024;
+size_t wgrad3_smem(const Geo& g, bool band) {
+  const size_t a_stages = band ? 2 : WG_ST, halo = band ? 3 * BAND_ROWS : WG_SC + 2 * g.W + 2;
+  return 1024 + WG_ST * 2 * WG_YB + a_stages * halo * TC_ROW + TC_ROW + 1024;
 }
 
-template <bool V, int NB>
+// The bands where wgrad's ring of three contiguous halos would not fit
+// (W > 106): no plane in ResNet-50 at 224 x 224, whose widest is 56.  The
+// contiguous halo stays where it fits: on an H100 the banded kernels are
+// 1.23-1.40x slower at ResNet-50's four planes (more dy rows formed, two
+// stages of a), tools/k5_halo_layouts.py.
+bool k5_banded(const Geo& g) { return wgrad3_smem(g, false) > MAX_SMEM; }
+
+template <bool V, int NB, bool BAND>
 cudaError_t launch_dgrad3(const bf16* y, const bf16* dout, const float* vec, const bf16* wt,
                           bf16* da, Geo g, int Ci, int Co, int relu, cudaStream_t stream) {
-  const size_t dsm = dgrad3_smem(g, NB);
-  cudaError_t err = opt_in_smem(dgrad3_mma_kernel<V, NB>, dsm);
+  const size_t dsm = dgrad3_smem(g, NB, BAND);
+  cudaError_t err = opt_in_smem(dgrad3_mma_kernel<V, NB, BAND>, dsm);
   if (err != cudaSuccess) return err;
   const dim3 dgrid((g.M + DW_TM - 1) / DW_TM, (Ci + 64 * NB - 1) / (64 * NB));
-  dgrad3_mma_kernel<V, NB><<<dgrid, 128 * DW_G, dsm, stream>>>(y, dout, vec, wt, da, g, Ci, Co,
-                                                             relu);
+  dgrad3_mma_kernel<V, NB, BAND><<<dgrid, 128 * DW_G, dsm, stream>>>(y, dout, vec, wt, da, g,
+                                                                   Ci, Co, relu);
   return cudaGetLastError();
 }
 
-template <bool V>
+template <bool V, bool BAND>
 cudaError_t launch_bf16_3x3_mma(const bf16* y, const bf16* dout, const bf16* a, const bf16* wt,
                                 const float* vec, bf16* da, float* dw, float* scratch, Geo g,
                                 int Ci, int Co, int relu, int splits, int rows_per_split,
                                 cudaStream_t stream) {
   // 128 input channels a CTA where there are more than 64: dy is then
   // recomputed, and W read, half as often per product.
-  cudaError_t err = Ci > 64 ? launch_dgrad3<V, 2>(y, dout, vec, wt, da, g, Ci, Co, relu, stream)
-                            : launch_dgrad3<V, 1>(y, dout, vec, wt, da, g, Ci, Co, relu, stream);
+  cudaError_t err =
+      Ci > 64 ? launch_dgrad3<V, 2, BAND>(y, dout, vec, wt, da, g, Ci, Co, relu, stream)
+              : launch_dgrad3<V, 1, BAND>(y, dout, vec, wt, da, g, Ci, Co, relu, stream);
   if (err != cudaSuccess) return err;
-  const size_t wsm = wgrad3_smem(g);
-  err = opt_in_smem(wgrad3_mma_kernel<V>, wsm);
+  const size_t wsm = wgrad3_smem(g, BAND);
+  err = opt_in_smem(wgrad3_mma_kernel<V, BAND>, wsm);
   if (err != cudaSuccess) return err;
   float* part = splits > 1 ? scratch : dw;
   const dim3 wgrid(((Ci + 63) / 64) * ((Co + 63) / 64), splits);
-  wgrad3_mma_kernel<V><<<wgrid, WG_NT, wsm, stream>>>(y, dout, vec, a, part, g, Ci, Co, relu,
-                                                     rows_per_split);
+  wgrad3_mma_kernel<V, BAND><<<wgrid, WG_NT, wsm, stream>>>(y, dout, vec, a, part, g, Ci, Co,
+                                                           relu, rows_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const int64_t size = (int64_t)9 * Co * Ci;
-  const int blocks = (int)((size + 255) / 256 < 4096 ? (size + 255) / 256 : 4096);
-  sum_splits_kernel<<<blocks, 256, 0, stream>>>(part, dw, size, splits);
+  return sum_splits(part, dw, (int64_t)9 * Co * Ci, splits, stream);
+}
+
+// ---------------------------------------------------------------------------
+// K4, bf16: tensor cores (wgmma, both operands by descriptor)
+// ---------------------------------------------------------------------------
+//
+// A 1x1 conv has no halo, so every operand is a plain tile and both operands
+// of both products are read by wgmma descriptors from 128-byte-swizzled
+// tiles in 64-channel blocks, filled by 16-byte cp.async.  Two kernels, each
+// reading y and dout once (dy is recomputed in shared memory, never
+// written): dgrad (da = dy . W) and wgrad (dW^T = a^T . dy over pixel
+// slices, then the deterministic split sum).  Where a product has several
+// channel tiles, the CTAs that share pixels are adjacent in launch order, so
+// that all but the first read of y, dout or a come from L2.
+
+constexpr int K4_NT = 256;    // two warpgroups a CTA
+constexpr int K4_DM = 128;    // dgrad: pixels a tile, 64 per warpgroup
+constexpr int K4_DST = 3;     // dgrad: stages of the ring of items
+constexpr int K4_WP = 64;     // wgrad: pixels a chunk
+constexpr int K4_WCI = 128;   // wgrad: input channels a CTA, 64 per warpgroup
+
+// The N width of a product: 64, 128 or 256 channels, the fewest 64-channel
+// blocks that cover c, at most 4 (128 accumulators a thread).
+int k4_width(int c) { return c <= 64 ? 64 : c <= 128 ? 128 : 256; }
+
+// dgrad stage: y and dout [128 px][64 co], W [64 co][TN ci].
+template <int TN>
+__host__ __device__ constexpr uint32_t k4_dgrad_stage() {
+  return 2 * K4_DM * TC_ROW + TN / 64 * TAP_BYTES;
+}
+// wgrad stage: a [64 px][128 ci], y and dout [64 px][TN co]; 2 stages at
+// TN = 256 (80 KB each), 3 below.
+template <int TN>
+__host__ __device__ constexpr uint32_t k4_wgrad_stage() {
+  return (2 + 2 * (TN / 64)) * K4_WP * TC_ROW;
+}
+template <int TN>
+__host__ __device__ constexpr int k4_wgrad_stages() { return TN == 256 ? 2 : 3; }
+
+// dy in place, as convert_dy, for the 1x1 kernels, where forming dy costs
+// more than the products: a thread keeps one 8-channel group's (s, t, u,
+// v) in registers (sv is 16-byte aligned, [4][64] f32) and converts its
+// ROWS / (NTH / 8) rows, unrolled, so that their loads are in flight
+// together.
+template <int NTH, int ROWS>
+__device__ __forceinline__ void convert_dy_rows(uint32_t sy, uint32_t sg, const float* sv,
+                                                int p0, int p_lo, int p_hi, int relu) {
+  static_assert(NTH % 8 == 0 && ROWS % (NTH / 8) == 0, "every thread converts as many rows");
+  const int c = threadIdx.x & 7;
+  float s[8], t[8], u[8], v[8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 s4 = reinterpret_cast<const float4*>(sv)[2 * c + h];
+    const float4 t4 = reinterpret_cast<const float4*>(sv + 64)[2 * c + h];
+    const float4 u4 = reinterpret_cast<const float4*>(sv + 128)[2 * c + h];
+    const float4 v4 = reinterpret_cast<const float4*>(sv + 192)[2 * c + h];
+    s[4 * h] = s4.x, s[4 * h + 1] = s4.y, s[4 * h + 2] = s4.z, s[4 * h + 3] = s4.w;
+    t[4 * h] = t4.x, t[4 * h + 1] = t4.y, t[4 * h + 2] = t4.z, t[4 * h + 3] = t4.w;
+    u[4 * h] = u4.x, u[4 * h + 1] = u4.y, u[4 * h + 2] = u4.z, u[4 * h + 3] = u4.w;
+    v[4 * h] = v4.x, v[4 * h + 1] = v4.y, v[4 * h + 2] = v4.z, v[4 * h + 3] = v4.w;
+  }
+#pragma unroll
+  for (int k = 0; k < ROWS / (NTH / 8); ++k) {
+    const int r = (threadIdx.x >> 3) + k * (NTH / 8), p = p0 + r;
+    const uint32_t off = rsw(r, c);
+    uint32_t d[4] = {0u, 0u, 0u, 0u};
+    if (p >= p_lo && p < p_hi) {
+      uint32_t yv[4], gv[4];
+      ld_shared_v4(yv, sy + off);
+      ld_shared_v4(gv, sg + off);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 yf = bf16x2_to_float2(yv[e]), gf = bf16x2_to_float2(gv[e]);
+        d[e] = pack_bf16(dy_val(yf.x, gf.x, s[2 * e], t[2 * e], u[2 * e], v[2 * e], relu),
+                         dy_val(yf.y, gf.y, s[2 * e + 1], t[2 * e + 1], u[2 * e + 1],
+                                v[2 * e + 1], relu));
+      }
+    }
+    st_shared_v4(sy + off, d);
+  }
+}
+
+// dgrad on wgmma: persistent CTAs of two warpgroups walk over tiles of (128
+// pixels, TN input channels), tile t = blockIdx.x + j * gridDim.x, with the
+// channel tiles of one pixel tile adjacent.  A tile sums over 64-channel
+// chunks of Co; a CTA's (tile, chunk) items stream through a ring of
+// K4_DST stages, each holding the item's y and dout [128 px][64 co], W [64
+// co][TN ci] and (s, t, u, v), copied two items ahead across tile
+// boundaries, so that the next tile's copies run under this tile's products
+// and stores.  Per item, y becomes dy in place (zero past M), the A operand
+// (K-major); W is the B operand (MN-major); warpgroup g owns pixels [64 g,
+// 64 g + 64) of the tile.  The products run with no other work in flight:
+// the kernel is bound by its copies, which stay two items ahead.
+template <bool V, int TN>
+__global__ void __launch_bounds__(K4_NT, 1)
+dgrad1_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
+                  const float* __restrict__ vec, const bf16* __restrict__ wt,
+                  bf16* __restrict__ da, int M, int Ci, int Co, int relu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NB = TN / 64;
+  constexpr uint32_t YB = K4_DM * TC_ROW;  // y or dout of an item
+  constexpr uint32_t STAGE = k4_dgrad_stage<TN>();
+  const uint32_t s0 = aligned_smem(smem);
+  // (s, t, u, v) of stage st at sv0 + 256 * st, [4][64] f32.
+  float* sv0 = reinterpret_cast<float*>(smem + (s0 + K4_DST * STAGE - smem_u32(smem)));
+  const int n_n = (Ci + TN - 1) / TN, n_k = (Co + 63) / 64;
+  const int n_tiles = (M + K4_DM - 1) / K4_DM * n_n;
+  const int n_items =
+      ((int)blockIdx.x < n_tiles ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0) *
+      n_k;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+
+  auto load_item = [&](int i) {
+    if (i < n_items) {
+      const int t = blockIdx.x + i / n_k * gridDim.x, k = i % n_k;
+      const int m0 = t / n_n * K4_DM, c0 = t % n_n * TN;
+      const uint32_t st = s0 + i % K4_DST * STAGE;
+      load_rows<V, K4_NT>(st, y, m0, K4_DM, M, Co, 64 * k);
+      load_rows<V, K4_NT>(st + YB, dout, m0, K4_DM, M, Co, 64 * k);
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        load_rows<V, K4_NT>(st + 2 * YB + b * TAP_BYTES, wt, 64 * k, 64, Co, Ci, c0 + 64 * b);
+      const int c = 64 * k + (tid & 63);  // one of the 256 vector entries a thread
+      cp_async4(smem_u32(sv0 + i % K4_DST * 256 + tid), c < Co ? vec + (tid >> 6) * Co + c : vec,
+                c < Co ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  load_item(0);
+  load_item(1);
+
+  float acc[TN / 8][4];
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int i = 0; i < n_items; ++i) {
+    const int t = blockIdx.x + i / n_k * gridDim.x, k = i % n_k;
+    const int m0 = t / n_n * K4_DM, c0 = t % n_n * TN;
+    const uint32_t st = s0 + i % K4_DST * STAGE;
+    cp_async_wait_1();  // item i has landed (this thread's copies)
+    __syncthreads();    // everyone's; every warpgroup is done with item i - 1
+    load_item(i + 2);   // into the stage of item i - 1
+    convert_dy_rows<K4_NT, K4_DM>(st, st + YB, sv0 + i % K4_DST * 256, m0, 0, M, relu);
+    fence_async_smem();  // dy, and the element-wise copies, for the descriptor reads
+    __syncthreads();
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_tr<TN, 0, 1>(acc, gmma_desc(st + wg * 64 * TC_ROW + kk * 32, 16, 1024),
+                            gmma_desc(st + 2 * YB + kk * 16 * TC_ROW, TAP_BYTES, 1024),
+                            k > 0 || kk > 0);
+    wg_commit();
+    wg_wait_all();
+    if (k == n_k - 1) {
+      // The tile's da, rounded to bf16, through this item's stage (which
+      // it fits: TN / 8 16-byte chunks a row, chunk j of row r at j ^ (r
+      // mod 8)), so that each row leaves in 16-byte stores, a warp writing
+      // whole rows.
+      reg_fence<TN / 8>(acc);
+      __syncthreads();  // both warpgroups' products have read the stage
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 16 * warp + (lane >> 2) + 8 * hh;
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j)
+          st_shared_u32(st + r * (TN * 2) + ((j ^ (r & 7)) << 4) + 4 * (lane & 3),
+                        pack_bf16(acc[j][2 * hh], acc[j][2 * hh + 1]));
+      }
+      __syncthreads();
+#pragma unroll
+      for (int it = 0; it < K4_DM * TN / 8 / K4_NT; ++it) {
+        const int q = tid + it * K4_NT, r = q / (TN / 8), j = q % (TN / 8);
+        const int m = m0 + r, ci = c0 + 8 * j;
+        uint32_t v[4];
+        ld_shared_v4(v, st + r * (TN * 2) + ((j ^ (r & 7)) << 4));
+        if (m >= M) continue;
+        bf16* dst = da + (int64_t)m * Ci + ci;
+        if constexpr (V) {
+          if (ci < Ci) *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+        } else {
+          const bf16* e = reinterpret_cast<const bf16*>(v);
+          for (int x = 0; x < 8 && ci + x < Ci; ++x) dst[x] = e[x];
+        }
+      }
+    }
+  }
+}
+
+// wgrad on wgmma: one CTA per (128 input channels, TN output channels, pixel
+// slice), two warpgroups, warpgroup g owning input channels [64 g, 64 g +
+// 64).  It computes dW^T over the slice's 64-pixel chunks: A = a^T, read
+// MN-major from the chunk's a tile [64 px][128 ci]; B = dy, read MN-major
+// from the chunk's dy tile [64 px][TN co].  Chunks stream through a ring of
+// k4_wgrad_stages<TN>() stages, copied one or two chunks ahead; per chunk, y
+// becomes dy in place (zero past the slice), then the four 16-deep products
+// run.  Writes the slice's f32 partial [co][ci] at out + slice * Co * Ci.
+template <bool V, int TN>
+__global__ void __launch_bounds__(K4_NT, 1)
+wgrad1_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
+                  const float* __restrict__ vec, const bf16* __restrict__ a,
+                  float* __restrict__ out, int M, int Ci, int Co, int relu,
+                  int rows_per_split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NB = TN / 64, ST = k4_wgrad_stages<TN>();
+  constexpr uint32_t BLK = K4_WP * TC_ROW;  // one 64-channel block of a chunk
+  constexpr uint32_t STAGE = k4_wgrad_stage<TN>();
+  const uint32_t s0 = aligned_smem(smem);  // stage st: a [2 blocks], y [NB], dout [NB]
+  float* sv = reinterpret_cast<float*>(smem + (s0 + ST * STAGE - smem_u32(smem)));  // [NB][4][64]
+  const int n_ci = (Ci + K4_WCI - 1) / K4_WCI;
+  const int ci0 = blockIdx.x % n_ci * K4_WCI, co0 = blockIdx.x / n_ci * TN;
+  const int mb = blockIdx.y * rows_per_split, me = min(M, mb + rows_per_split);
+  const int n_ch = me > mb ? (me - mb + K4_WP - 1) / K4_WP : 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  for (int i = tid; i < NB * 256; i += K4_NT) {
+    const int c = co0 + 64 * (i >> 8) + (i & 63);
+    sv[i] = c < Co ? vec[((i >> 6) & 3) * Co + c] : 0.f;
+  }
+  auto load_chunk = [&](int ch) {
+    if (ch < n_ch) {
+      const uint32_t st = s0 + ch % ST * STAGE;
+      const int r0 = mb + ch * K4_WP;
+      load_rows<V, K4_NT>(st, a, r0, K4_WP, M, Ci, ci0);
+      load_rows<V, K4_NT>(st + BLK, a, r0, K4_WP, M, Ci, ci0 + 64);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        load_rows<V, K4_NT>(st + (2 + b) * BLK, y, r0, K4_WP, M, Co, co0 + 64 * b);
+        load_rows<V, K4_NT>(st + (2 + NB + b) * BLK, dout, r0, K4_WP, M, Co, co0 + 64 * b);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int ch = 0; ch < ST - 1; ++ch) load_chunk(ch);
+
+  float acc[TN / 8][4];
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int ch = 0; ch < n_ch; ++ch) {
+    const uint32_t st = s0 + ch % ST * STAGE;
+    if constexpr (ST == 2) cp_async_wait_0(); else cp_async_wait_1();  // chunk ch landed
+    __syncthreads();  // everyone's copies; every warpgroup is done with chunk ch - 1
+    load_chunk(ch + ST - 1);  // into the stage of chunk ch - 1
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      convert_dy_rows<K4_NT, K4_WP>(st + (2 + b) * BLK, st + (2 + NB + b) * BLK, sv + 256 * b,
+                                    mb + ch * K4_WP, mb, me, relu);
+    fence_async_smem();
+    __syncthreads();
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_tr<TN, 1, 1>(acc, gmma_desc(st + wg * BLK + kk * 16 * TC_ROW, BLK, 1024),
+                            gmma_desc(st + 2 * BLK + kk * 16 * TC_ROW, BLK, 1024), 1);
+    wg_commit();
+    wg_wait_all();
+  }
+  reg_fence<TN / 8>(acc);
+
+  float* o = out + (int64_t)blockIdx.y * Co * Ci;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int ci = ci0 + 16 * warp + (lane >> 2) + 8 * hh;
+    if (ci >= Ci) continue;
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j) {
+      const int co = co0 + 8 * j + 2 * (lane & 3);
+      if (co < Co) o[(int64_t)co * Ci + ci] = acc[j][2 * hh];
+      if (co + 1 < Co) o[(int64_t)(co + 1) * Ci + ci] = acc[j][2 * hh + 1];
+    }
+  }
+}
+
+template <bool V, int TN>
+cudaError_t launch_dgrad1(const bf16* y, const bf16* dout, const float* vec, const bf16* wt,
+                          bf16* da, int M, int Ci, int Co, int relu, cudaStream_t stream) {
+  const size_t dsm = 1024 + K4_DST * (k4_dgrad_stage<TN>() + 1024);
+  cudaError_t err = opt_in_smem(dgrad1_mma_kernel<V, TN>, dsm);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dgrad1_mma_kernel<V, TN>,
+                                                           K4_NT, dsm)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) per_sm = 1;
+  const int64_t tiles = (int64_t)((M + K4_DM - 1) / K4_DM) * ((Ci + TN - 1) / TN);
+  const int grid = (int)(tiles < (int64_t)sms * per_sm ? tiles : (int64_t)sms * per_sm);
+  dgrad1_mma_kernel<V, TN><<<grid, K4_NT, dsm, stream>>>(y, dout, vec, wt, da, M, Ci, Co, relu);
   return cudaGetLastError();
+}
+
+template <bool V, int TN>
+cudaError_t launch_wgrad1(const bf16* y, const bf16* dout, const float* vec, const bf16* a,
+                          float* part, int M, int Ci, int Co, int relu, int splits,
+                          int rows_per_split, cudaStream_t stream) {
+  const size_t wsm = 1024 + k4_wgrad_stages<TN>() * k4_wgrad_stage<TN>() + TN / 64 * 1024;
+  cudaError_t err = opt_in_smem(wgrad1_mma_kernel<V, TN>, wsm);
+  if (err != cudaSuccess) return err;
+  const dim3 wgrid(((Ci + K4_WCI - 1) / K4_WCI) * ((Co + TN - 1) / TN), splits);
+  wgrad1_mma_kernel<V, TN><<<wgrid, K4_NT, wsm, stream>>>(y, dout, vec, a, part, M, Ci, Co,
+                                                         relu, rows_per_split);
+  return cudaGetLastError();
+}
+
+template <bool V>
+cudaError_t launch_bf16_1x1_mma(const bf16* y, const bf16* dout, const bf16* a, const bf16* wt,
+                                const float* vec, bf16* da, float* dw, float* scratch, int M,
+                                int Ci, int Co, int relu, int splits, int rows_per_split,
+                                cudaStream_t stream) {
+  const int dn = k4_width(Ci), wn = k4_width(Co);
+  cudaError_t err =
+      dn == 64    ? launch_dgrad1<V, 64>(y, dout, vec, wt, da, M, Ci, Co, relu, stream)
+      : dn == 128 ? launch_dgrad1<V, 128>(y, dout, vec, wt, da, M, Ci, Co, relu, stream)
+                  : launch_dgrad1<V, 256>(y, dout, vec, wt, da, M, Ci, Co, relu, stream);
+  if (err != cudaSuccess) return err;
+  float* part = splits > 1 ? scratch : dw;
+  err = wn == 64    ? launch_wgrad1<V, 64>(y, dout, vec, a, part, M, Ci, Co, relu, splits,
+                                           rows_per_split, stream)
+        : wn == 128 ? launch_wgrad1<V, 128>(y, dout, vec, a, part, M, Ci, Co, relu, splits,
+                                            rows_per_split, stream)
+                    : launch_wgrad1<V, 256>(y, dout, vec, a, part, M, Ci, Co, relu, splits,
+                                            rows_per_split, stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  return sum_splits(part, dw, (int64_t)Co * Ci, splits, stream);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// K5 in bf16: the tensor-core kernels, 16 bytes at a time where every
+// bf16 K4 and K5: the tensor-core kernels, 16 bytes at a time where every
 // channel count is a multiple of 8 and every pointer 16-byte aligned,
-// element by element otherwise.  A plane so wide that wgrad's halo ring
-// exceeds a CTA's shared memory (W above 106) is refused; the wrapper
-// raises before it gets here.
-cudaError_t launch_bf16_3x3(const void* y, const void* dout, const void* a, const void* wt,
-                            const void* vec, void* da, void* dw, void* scratch, Geo g, int Ci,
-                            int Co, int relu, int splits, int rows_per_split,
-                            cudaStream_t stream) {
-  if (dgrad3_smem(g, 2) > MAX_SMEM || wgrad3_smem(g) > MAX_SMEM) return cudaErrorInvalidValue;
+// element by element otherwise.  K5 takes planes of any width: halo bands
+// above 106 pixels.
+cudaError_t launch_bf16(const void* y, const void* dout, const void* a, const void* wt,
+                        const void* vec, void* da, void* dw, void* scratch, Geo g, int Ci,
+                        int Co, int ks, int relu, int splits, int rows_per_split,
+                        cudaStream_t stream) {
   const bool v = Ci % 8 == 0 && Co % 8 == 0 && aligned16(y) && aligned16(dout) &&
                  aligned16(a) && aligned16(wt) && aligned16(da) && aligned16(dw) &&
                  aligned16(scratch);
-  auto run = v ? launch_bf16_3x3_mma<true> : launch_bf16_3x3_mma<false>;
-  return run(static_cast<const bf16*>(y), static_cast<const bf16*>(dout),
-             static_cast<const bf16*>(a), static_cast<const bf16*>(wt),
-             static_cast<const float*>(vec), static_cast<bf16*>(da), static_cast<float*>(dw),
-             static_cast<float*>(scratch), g, Ci, Co, relu, splits, rows_per_split, stream);
+  const bf16 *yp = static_cast<const bf16*>(y), *gp = static_cast<const bf16*>(dout),
+             *ap = static_cast<const bf16*>(a), *wp = static_cast<const bf16*>(wt);
+  const float* vp = static_cast<const float*>(vec);
+  bf16* dap = static_cast<bf16*>(da);
+  float *dwp = static_cast<float*>(dw), *sp = static_cast<float*>(scratch);
+  if (ks == 1) {
+    auto run = v ? launch_bf16_1x1_mma<true> : launch_bf16_1x1_mma<false>;
+    return run(yp, gp, ap, wp, vp, dap, dwp, sp, g.M, Ci, Co, relu, splits, rows_per_split,
+               stream);
+  }
+  const bool band = k5_banded(g);
+  auto run = v ? (band ? launch_bf16_3x3_mma<true, true> : launch_bf16_3x3_mma<true, false>)
+               : (band ? launch_bf16_3x3_mma<false, true> : launch_bf16_3x3_mma<false, false>);
+  return run(yp, gp, ap, wp, vp, dap, dwp, sp, g, Ci, Co, relu, splits, rows_per_split, stream);
 }
 
 }  // namespace
+
+// The wgrad grid that (Ci, Co, ks, dtype) selects: returns its CTAs per
+// pixel slice and writes the pixel chunk (a slice's rows must be a multiple
+// of it) to *chunk.  The wrapper sizes its pixel split, and the split
+// scratch, from these, so the tiles are decided here alone.
+extern "C" int ptd_fused_conv_bn_wgrad_tiles(int Ci, int Co, int ks, int dtype, int* chunk) {
+  if (dtype == 0) {
+    *chunk = TK;
+    return ((Ci + TN - 1) / TN) * ((Co + TM - 1) / TM) * ks * ks;
+  }
+  if (ks == 3) {
+    *chunk = WG_SC;
+    return ((Ci + 63) / 64) * ((Co + 63) / 64);
+  }
+  const int tn = k4_width(Co);
+  *chunk = K4_WP;
+  return ((Ci + K4_WCI - 1) / K4_WCI) * ((Co + tn - 1) / tn);
+}
 
 // y, dout: contiguous [M, Co] and a: contiguous [M, Ci] in the input dtype,
 // M = N * H * W NHWC pixel rows (ks = 1: pass H = W = 1 and N = M); wt:
@@ -805,12 +1233,10 @@ extern "C" int ptd_fused_conv_bn_bwd(const void* y, const void* dout, const void
   const Geo g{(int)M, H, W};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && ks == 1)
-    return launch<float, 1>(y, dout, a, wt, vec, da, dw, scratch, g, Ci, Co, relu, splits, rows_per_split, s);
+    return launch_f32<1>(y, dout, a, wt, vec, da, dw, scratch, g, Ci, Co, relu, splits, rows_per_split, s);
   if (dtype == 0 && ks == 3)
-    return launch<float, 3>(y, dout, a, wt, vec, da, dw, scratch, g, Ci, Co, relu, splits, rows_per_split, s);
-  if (dtype == 1 && ks == 1)
-    return launch<__nv_bfloat16, 1>(y, dout, a, wt, vec, da, dw, scratch, g, Ci, Co, relu, splits, rows_per_split, s);
-  if (dtype == 1 && ks == 3)
-    return launch_bf16_3x3(y, dout, a, wt, vec, da, dw, scratch, g, Ci, Co, relu, splits, rows_per_split, s);
+    return launch_f32<3>(y, dout, a, wt, vec, da, dw, scratch, g, Ci, Co, relu, splits, rows_per_split, s);
+  if (dtype == 1 && (ks == 1 || ks == 3))
+    return launch_bf16(y, dout, a, wt, vec, da, dw, scratch, g, Ci, Co, ks, relu, splits, rows_per_split, s);
   return cudaErrorInvalidValue;
 }

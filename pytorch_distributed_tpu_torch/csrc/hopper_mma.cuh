@@ -113,42 +113,6 @@ __device__ __forceinline__ void reg_fence(float (&c)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(c[j][e]) :: "memory");
 }
 
-// c[64 x 32] += A . B, A and B from shared memory (K-major descriptors).
-__device__ __forceinline__ void wgmma_ss_n32(float (&c)[4][4], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]),
-        "+f"(c[1][0]), "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3]),
-        "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]), "+f"(c[2][3]),
-        "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// c[64 x 64] += A . B, A and B from shared memory (K-major descriptors).
-__device__ __forceinline__ void wgmma_ss_n64(float (&c)[8][4], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]),
-        "+f"(c[1][0]), "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3]),
-        "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]), "+f"(c[2][3]),
-        "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3]),
-        "+f"(c[4][0]), "+f"(c[4][1]), "+f"(c[4][2]), "+f"(c[4][3]),
-        "+f"(c[5][0]), "+f"(c[5][1]), "+f"(c[5][2]), "+f"(c[5][3]),
-        "+f"(c[6][0]), "+f"(c[6][1]), "+f"(c[6][2]), "+f"(c[6][3]),
-        "+f"(c[7][0]), "+f"(c[7][1]), "+f"(c[7][2]), "+f"(c[7][3])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 // c[64 x 64] += A . B, A from registers (the warp's 16 rows as an m16n8k16
 // A fragment), B from shared memory (MN-major descriptor, transposed).
 __device__ __forceinline__ void wgmma_rs_n64(float (&c)[8][4], const uint32_t (&a)[4],
@@ -230,18 +194,162 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&c)[16][4], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&c)[N / 8][4], uint64_t da, uint64_t db) {
-  static_assert(N == 32 || N == 64, "streamed tiles are 32 or 64 rows");
-  if constexpr (N == 32) wgmma_ss_n32(c, da, db); else wgmma_ss_n64(c, da, db);
-}
-
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&c)[N / 8][4], const uint32_t (&a)[4],
                                          uint64_t db) {
   static_assert(N == 64 || N == 128, "head dims are 64 or 128");
   if constexpr (N == 64) wgmma_rs_n64(c, a, db); else wgmma_rs_n128(c, a, db);
+}
+
+// c[64 x 32] (+)= A . B, both from shared memory; TA, TB: 0 K-major, 1 MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32_t(float (&c)[4][4], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]),
+        "+f"(c[1][0]), "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3]),
+        "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]), "+f"(c[2][3]),
+        "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// c[64 x 64] (+)= A . B, both from shared memory; TA, TB: 0 K-major, 1 MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64_t(float (&c)[8][4], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]),
+        "+f"(c[1][0]), "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3]),
+        "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]), "+f"(c[2][3]),
+        "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3]),
+        "+f"(c[4][0]), "+f"(c[4][1]), "+f"(c[4][2]), "+f"(c[4][3]),
+        "+f"(c[5][0]), "+f"(c[5][1]), "+f"(c[5][2]), "+f"(c[5][3]),
+        "+f"(c[6][0]), "+f"(c[6][1]), "+f"(c[6][2]), "+f"(c[6][3]),
+        "+f"(c[7][0]), "+f"(c[7][1]), "+f"(c[7][2]), "+f"(c[7][3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// c[64 x 128] (+)= A . B, both from shared memory; TA, TB: 0 K-major, 1 MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128_t(float (&c)[16][4], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]),
+        "+f"(c[1][0]), "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3]),
+        "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]), "+f"(c[2][3]),
+        "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3]),
+        "+f"(c[4][0]), "+f"(c[4][1]), "+f"(c[4][2]), "+f"(c[4][3]),
+        "+f"(c[5][0]), "+f"(c[5][1]), "+f"(c[5][2]), "+f"(c[5][3]),
+        "+f"(c[6][0]), "+f"(c[6][1]), "+f"(c[6][2]), "+f"(c[6][3]),
+        "+f"(c[7][0]), "+f"(c[7][1]), "+f"(c[7][2]), "+f"(c[7][3]),
+        "+f"(c[8][0]), "+f"(c[8][1]), "+f"(c[8][2]), "+f"(c[8][3]),
+        "+f"(c[9][0]), "+f"(c[9][1]), "+f"(c[9][2]), "+f"(c[9][3]),
+        "+f"(c[10][0]), "+f"(c[10][1]), "+f"(c[10][2]), "+f"(c[10][3]),
+        "+f"(c[11][0]), "+f"(c[11][1]), "+f"(c[11][2]), "+f"(c[11][3]),
+        "+f"(c[12][0]), "+f"(c[12][1]), "+f"(c[12][2]), "+f"(c[12][3]),
+        "+f"(c[13][0]), "+f"(c[13][1]), "+f"(c[13][2]), "+f"(c[13][3]),
+        "+f"(c[14][0]), "+f"(c[14][1]), "+f"(c[14][2]), "+f"(c[14][3]),
+        "+f"(c[15][0]), "+f"(c[15][1]), "+f"(c[15][2]), "+f"(c[15][3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// c[64 x 256] (+)= A . B, both from shared memory; TA, TB: 0 K-major, 1 MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n256_t(float (&c)[32][4], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]),
+        "+f"(c[1][0]), "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3]),
+        "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]), "+f"(c[2][3]),
+        "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3]),
+        "+f"(c[4][0]), "+f"(c[4][1]), "+f"(c[4][2]), "+f"(c[4][3]),
+        "+f"(c[5][0]), "+f"(c[5][1]), "+f"(c[5][2]), "+f"(c[5][3]),
+        "+f"(c[6][0]), "+f"(c[6][1]), "+f"(c[6][2]), "+f"(c[6][3]),
+        "+f"(c[7][0]), "+f"(c[7][1]), "+f"(c[7][2]), "+f"(c[7][3]),
+        "+f"(c[8][0]), "+f"(c[8][1]), "+f"(c[8][2]), "+f"(c[8][3]),
+        "+f"(c[9][0]), "+f"(c[9][1]), "+f"(c[9][2]), "+f"(c[9][3]),
+        "+f"(c[10][0]), "+f"(c[10][1]), "+f"(c[10][2]), "+f"(c[10][3]),
+        "+f"(c[11][0]), "+f"(c[11][1]), "+f"(c[11][2]), "+f"(c[11][3]),
+        "+f"(c[12][0]), "+f"(c[12][1]), "+f"(c[12][2]), "+f"(c[12][3]),
+        "+f"(c[13][0]), "+f"(c[13][1]), "+f"(c[13][2]), "+f"(c[13][3]),
+        "+f"(c[14][0]), "+f"(c[14][1]), "+f"(c[14][2]), "+f"(c[14][3]),
+        "+f"(c[15][0]), "+f"(c[15][1]), "+f"(c[15][2]), "+f"(c[15][3]),
+        "+f"(c[16][0]), "+f"(c[16][1]), "+f"(c[16][2]), "+f"(c[16][3]),
+        "+f"(c[17][0]), "+f"(c[17][1]), "+f"(c[17][2]), "+f"(c[17][3]),
+        "+f"(c[18][0]), "+f"(c[18][1]), "+f"(c[18][2]), "+f"(c[18][3]),
+        "+f"(c[19][0]), "+f"(c[19][1]), "+f"(c[19][2]), "+f"(c[19][3]),
+        "+f"(c[20][0]), "+f"(c[20][1]), "+f"(c[20][2]), "+f"(c[20][3]),
+        "+f"(c[21][0]), "+f"(c[21][1]), "+f"(c[21][2]), "+f"(c[21][3]),
+        "+f"(c[22][0]), "+f"(c[22][1]), "+f"(c[22][2]), "+f"(c[22][3]),
+        "+f"(c[23][0]), "+f"(c[23][1]), "+f"(c[23][2]), "+f"(c[23][3]),
+        "+f"(c[24][0]), "+f"(c[24][1]), "+f"(c[24][2]), "+f"(c[24][3]),
+        "+f"(c[25][0]), "+f"(c[25][1]), "+f"(c[25][2]), "+f"(c[25][3]),
+        "+f"(c[26][0]), "+f"(c[26][1]), "+f"(c[26][2]), "+f"(c[26][3]),
+        "+f"(c[27][0]), "+f"(c[27][1]), "+f"(c[27][2]), "+f"(c[27][3]),
+        "+f"(c[28][0]), "+f"(c[28][1]), "+f"(c[28][2]), "+f"(c[28][3]),
+        "+f"(c[29][0]), "+f"(c[29][1]), "+f"(c[29][2]), "+f"(c[29][3]),
+        "+f"(c[30][0]), "+f"(c[30][1]), "+f"(c[30][2]), "+f"(c[30][3]),
+        "+f"(c[31][0]), "+f"(c[31][1]), "+f"(c[31][2]), "+f"(c[31][3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+
+// c[64 x N] (+)= A . B with both operands read by shared-memory descriptors,
+// each K-major (0) or MN-major (1, transposed); scale_d 0 overwrites c.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_tr(float (&c)[N / 8][4], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "tiles are 32 to 256 wide");
+  if constexpr (N == 32) wgmma_ss_n32_t<TA, TB>(c, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64_t<TA, TB>(c, da, db, scale_d);
+  else if constexpr (N == 128) wgmma_ss_n128_t<TA, TB>(c, da, db, scale_d);
+  else wgmma_ss_n256_t<TA, TB>(c, da, db, scale_d);
 }
 
 // Four 8 x 8 bf16 matrices from shared memory, lane l naming row l % 8 of
@@ -290,8 +398,8 @@ __device__ __forceinline__ void mma_xut(float (&c)[N / 8][4], uint32_t sX, uint3
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t k_off = (kk & 3) * 32;  // 16 columns into a 128-byte row
-    wgmma_ss<N>(c, gmma_desc(sX + (kk >> 2) * (WG_ROWS * 128) + k_off, 16, 1024),
-                gmma_desc(sU + (kk >> 2) * (N * 128) + k_off, 16, 1024));
+    wgmma_ss_tr<N, 0, 0>(c, gmma_desc(sX + (kk >> 2) * (WG_ROWS * 128) + k_off, 16, 1024),
+                         gmma_desc(sU + (kk >> 2) * (N * 128) + k_off, 16, 1024), 1);
   }
   wg_commit();
 }

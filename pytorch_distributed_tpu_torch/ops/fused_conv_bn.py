@@ -11,7 +11,7 @@ per-channel vectors instead of reading a dy written to device memory.
   plain PyTorch (the JAX ``_bn_bwd_vectors``).
 - K4 ``fused_dgrad_wgrad`` (1x1) and K5 ``fused_dgrad_wgrad_3x3`` launch
   ``csrc/fused_conv_bn_bwd.cu`` on CUDA tensors, with a launch counter each
-  (K5 in bf16 on the tensor cores, K4 and f32 on the CUDA cores);
+  (bf16 on the tensor cores, f32 on the CUDA cores);
   CPU tensors take their plain versions ``fused_dgrad_wgrad_reference`` and
   ``fused_dgrad_wgrad_3x3_reference`` (the 9 shifted products of the JAX
   ``_bwd3_kernel``).
@@ -38,19 +38,14 @@ from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.ops.fused_bn import bn_act_fwd
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Work split of the CUDA-core wgrad: about 4 CTAs in flight per SM of the
-# H100's 132, with at least 256 pixels per slice (16-pixel chunks).
+# Work split of the wgrad over pixel slices; the kernel source reports its
+# grid's CTAs per slice and pixel chunk (``_wgrad_tiles``).  The CUDA-core
+# wgrad: about 4 CTAs in flight per SM of the H100's 132, with at least 256
+# pixels per slice.  The bf16 tensor-core wgrads run one CTA per SM: about
+# two full waves, with no partial wave when the channel tiles allow it.
 _TARGET_CTAS = 4 * 132
 _MIN_SLICE_ROWS = 256
-# The bf16 3x3 tensor-core wgrad runs one CTA per SM (12 warps holding the
-# 9 taps' 64 x 64 f32 accumulators) over 128-pixel chunks: about two full
-# waves, with no partial wave when the (Co, Ci) tiles allow it.
 _TC_WAVES = 2
-_TC_CHUNK = 128
-# Its ring of three 128-pixel chunks, each with a halo of 2 * W + 2 rows of
-# a, fits a CTA's 227 KB of shared memory up to planes 106 pixels wide
-# (``wgrad3_smem`` in the kernel source); wider bf16 planes raise.
-_TC_MAX_W = 106
 
 
 def bn_bwd_vectors(y, do, mu, inv, gamma, beta, relu: bool):
@@ -120,19 +115,15 @@ def fused_dgrad_wgrad_3x3_reference(y, do, a, w, s, t, u, v, relu: bool
     return dx.reshape(N, H, W, Ci).to(a.dtype), dw
 
 
-def _wgrad_split(M: int, Ci: int, Co: int, taps: int, tensor_cores: bool = False
+def _wgrad_split(M: int, tiles: int, chunk: int, tensor_cores: bool = False
                  ) -> Tuple[int, int]:
-    """``(splits, rows per split)`` of the kernel's wgrad pixel slices: for
-    the CUDA-core wgrad (a CTA per tap and tile), or for the bf16 3x3
-    tensor-core wgrad (a CTA per tile, all taps inside)."""
+    """``(splits, rows per split)`` of the kernel's wgrad pixel slices, for
+    a wgrad grid of ``tiles`` CTAs per slice over ``chunk``-pixel chunks:
+    the CUDA-core wgrad's rule, or the bf16 tensor-core wgrads'."""
     if tensor_cores:
-        tiles = -(-Ci // 64) * -(-Co // 64)
-        splits = max(1, min(_TC_WAVES * 132 // tiles, -(-M // _TC_CHUNK)))
-        chunk = _TC_CHUNK
+        splits = max(1, min(_TC_WAVES * 132 // tiles, -(-M // chunk)))
     else:
-        tiles = -(-Ci // 64) * -(-Co // 64) * taps
         splits = max(1, min(-(-_TARGET_CTAS // tiles), -(-M // _MIN_SLICE_ROWS)))
-        chunk = 16
     rows = -(-M // splits)
     rows = -(-rows // chunk) * chunk
     return -(-M // rows), rows
@@ -145,6 +136,18 @@ def _kernel():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     return fn
+
+
+@functools.cache
+def _wgrad_tiles(Ci: int, Co: int, ks: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(CTAs per pixel slice, pixel chunk)`` of the wgrad grid the kernel
+    source picks for these channels, taps and dtype."""
+    fn = _build.load("fused_conv_bn_bwd").ptd_fused_conv_bn_wgrad_tiles
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    chunk = ctypes.c_int()
+    tiles = fn(Ci, Co, ks, _KERNEL_DTYPES[dtype], ctypes.byref(chunk))
+    return tiles, chunk.value
 
 
 def _check(name, y, do, a, w, ks: int) -> None:
@@ -168,9 +171,6 @@ def _check(name, y, do, a, w, ks: int) -> None:
         raise ValueError(f"{name}: the kernel needs contiguous NHWC y, do and a")
     if y.numel() // y.shape[-1] >= 2 ** 31:
         raise ValueError(f"{name}: more pixels than the kernel indexes")
-    if ks == 3 and a.dtype == torch.bfloat16 and y.shape[2] > _TC_MAX_W:
-        raise ValueError(f"{name}: the bf16 kernel takes planes up to {_TC_MAX_W} pixels "
-                         f"wide, got {y.shape[2]}")
 
 
 def _launch(name: str, y, do, a, w, s, t, u, v, relu: bool, ks: int):
@@ -188,8 +188,8 @@ def _launch(name: str, y, do, a, w, s, t, u, v, relu: bool, ks: int):
     if M == 0:
         return da, dw.zero_()
     vec = torch.stack([s, t, u, v]).float().contiguous()
-    splits, rows = _wgrad_split(M, Ci, Co, ks * ks,
-                                tensor_cores=ks == 3 and a.dtype == torch.bfloat16)
+    splits, rows = _wgrad_split(M, *_wgrad_tiles(Ci, Co, ks, a.dtype),
+                                tensor_cores=a.dtype == torch.bfloat16)
     scratch = (torch.empty((splits, ks * ks, Co, Ci), dtype=torch.float32, device=a.device)
                if splits > 1 else dw)
     with torch.cuda.device(a.device):
@@ -298,8 +298,8 @@ def conv3x3_plane_fits_vmem(h: int, w_: int, ci: int, co: int, itemsize: int,
     so that the port folds exactly the slots the JAX model folds (every
     ResNet-50 bf16 3x3 slot).  It estimates the TPU kernel's VMEM working
     set (whole planes, channels padded to 128 lanes, a 1.5x headroom) and is
-    not K5's limit: K5 tiles planes, and only its bf16 kernel bounds their
-    width (``_TC_MAX_W``, past every square plane this rule folds)."""
+    not K5's limit: K5 tiles planes and takes every width this rule folds
+    (up to 2656 pixels at h = 1 and 64 channels)."""
     ci_p = ((ci + 127) // 128) * 128
     co_p = ((co + 127) // 128) * 128
     hw = (h + 2) * (w_ + 2)

@@ -32,12 +32,14 @@ from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.train.steps import make_train_step
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
-# Kernel names of csrc/fused_conv_bn_bwd.cu: the CUDA-core dgrad/wgrad
-# templated on <dtype, kernel size>, the bf16 3x3 tensor-core pair
-# (dgrad3_mma_kernel, wgrad3_mma_kernel); the split reduction serves all.
-_K4 = (", 1>",)
-_K5 = (", 3>", "3_mma_kernel<")
-_OURS = ("dgrad_kernel<", "wgrad_kernel<", "dgrad3_mma_kernel<", "wgrad3_mma_kernel<")
+# Kernel names of csrc/fused_conv_bn_bwd.cu: the f32 CUDA-core dgrad/wgrad
+# templated on the kernel size, the bf16 tensor-core pairs for 1x1
+# (dgrad1_mma_kernel, wgrad1_mma_kernel) and 3x3 (dgrad3_mma_kernel,
+# wgrad3_mma_kernel); the split reduction serves all.
+_K4 = ("_kernel<1>", "1_mma_kernel<")
+_K5 = ("_kernel<3>", "3_mma_kernel<")
+_OURS = ("dgrad_kernel<", "wgrad_kernel<", "dgrad1_mma_kernel<", "wgrad1_mma_kernel<",
+         "dgrad3_mma_kernel<", "wgrad3_mma_kernel<")
 _REDUCE = "sum_splits_kernel"
 # Substrings of cuDNN's convolution kernel names on Hopper.
 _CONV_NAMES = ("conv", "xmma", "implicit_gemm", "cudnn", "fprop", "dgrad", "wgrad", "nhwc")
@@ -45,8 +47,6 @@ _CONV_NAMES = ("conv", "xmma", "implicit_gemm", "cudnn", "fprop", "dgrad", "wgra
 
 def _classify(name: str) -> str:
     if any(k in name for k in _OURS):
-        # K5 first: the tensor-core dgrad's template arguments end in ", 1>"
-        # or ", 2>" (its warp columns), not in the kernel size.
         return "K5" if any(s in name for s in _K5) else "K4" if any(
             s in name for s in _K4) else "other"
     if _REDUCE in name:
