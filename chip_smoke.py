@@ -56,15 +56,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 11. time the bf16 ResNet-50 b256 224x224 training step fused and unfused
     (f32 weights, the same seeded weights and synthetic batches, copied to
     the card beforehand): 2 warm-up steps, then the median of 7 steps, each
-    closed by a synchronise.  A measurement only: it fails nothing.
+    closed by a synchronise.  A measurement only: it fails nothing;
+12. drive the paged continuous-batching serving engine
+    (``serving.engine.ServingEngine``) at the LM's full width in f32, as
+    the JAX engine serves, with 16 slots, 16-token blocks, a 1024-token
+    window, 128-token prefill chunks and a pool of 384 usable blocks,
+    through a seeded mixed trace of 64 requests (prompts 128-512 tokens,
+    outputs 16-64, one in five 256-384) arriving at 200 requests/s: every
+    request must complete with at least one preemption, the decode step be
+    captured once as a CUDA graph and replayed once per decode iteration,
+    static mode emit the same tokens, the first 8 requests agree with the
+    dense KV-cache path (``greedy_generate``) on at least 90% of their
+    tokens, up to a first difference only where its top-2 logit gap is
+    under 1e-3, and
+    ``serving.serve_lm.main`` serve 16 requests; none of K1-K5 may launch.
+    Prints tokens/s, TTFT and ITL percentiles, decode-step wall time and
+    the device-busy share of a decode step (CUDA events around each graph
+    replay), prefill ms per chunk, preemptions, defrags and peak memory.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
 non-zero without one.
 """
 
+import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -95,6 +113,9 @@ from pytorch_distributed_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 from pytorch_distributed_tpu_torch.recipes import lm_generate, lm_pretrain, tpu_native
+from pytorch_distributed_tpu_torch.serving import serve_lm
+from pytorch_distributed_tpu_torch.serving.engine import ServingEngine, init_lm_params
+from pytorch_distributed_tpu_torch.serving.loadgen import LoadConfig, generate_load
 from pytorch_distributed_tpu_torch.train.lm import lm_loss
 from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.train.steps import make_train_step
@@ -180,6 +201,163 @@ def _frob(got, want):
     """Relative Frobenius error ||got - want|| / ||want||."""
     got, want = got.float(), want.float()
     return ((got - want).norm() / want.norm()).item()
+
+
+def _instrument(eng):
+    """Time an engine's work as it runs: host wall time of every decode
+    iteration and prefill, and CUDA events around every decode-step
+    replay (the device time of the step)."""
+    rec = dict(decode_s=[], replay_events=[], prefill_s=0.0, chunks=0)
+    decode, replay, prefill = eng._decode, eng._run_decode_step, eng._prefill
+
+    def timed_decode(live):
+        t0 = time.perf_counter()
+        n = decode(live)
+        rec["decode_s"].append(time.perf_counter() - t0)
+        return n
+
+    def timed_replay():
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay()
+        b.record()
+        rec["replay_events"].append((a, b))
+
+    def timed_prefill(slot, req):
+        t0 = time.perf_counter()
+        prefill(slot, req)
+        rec["prefill_s"] += time.perf_counter() - t0
+        rec["chunks"] += -(-len(req.prompt) // eng.chunk_size)
+
+    eng._decode, eng._run_decode_step, eng._prefill = timed_decode, timed_replay, timed_prefill
+    return rec
+
+
+def _top2_gaps(logits):
+    top = logits.float().topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).tolist()
+
+
+def serving_engine_phase(dev, card, lm, kv_blocks=385, n_requests=64, n_dense=8,
+                         entry_requests=16):
+    """Phase 12: the paged continuous-batching engine at the width ``lm``."""
+    kernels = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv,
+               fused_dgrad_wgrad, fused_dgrad_wgrad_3x3)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm_params(**lm, seed=0, device=dev)
+    eng_cfg = dict(lm, max_batch=16, kv_blocks=kv_blocks, block_size=16, blocks_per_seq=64,
+                   chunk_size=128, max_new_tokens=384, policy="fcfs",
+                   defrag_threshold_pct=50.0, device=dev)
+    load_cfg = LoadConfig(n_requests=n_requests, rate_rps=200.0, profile="mixed",
+                          vocab_size=lm["vocab_size"], prompt_min=128, prompt_max=512,
+                          short_min=16, short_max=64, long_min=256, long_max=384,
+                          long_frac=0.2, seed=0)
+    tokens, prompts = {}, {}
+    for mode in ("continuous", "static"):
+        eng = ServingEngine(params, mode=mode, **eng_cfg)
+        rec = _instrument(eng)
+        load = generate_load(load_cfg)
+        prompts = {r.rid: list(r.prompt) for _, r in load}
+        s = eng.run(load)
+        torch.cuda.synchronize()
+        tokens[mode] = {r.rid: list(r.generated) for r in eng.finished}
+        replay_ms = [a.elapsed_time(b) for a, b in rec["replay_events"]]
+        wall_ms = [t * 1e3 for t in rec["decode_s"]]
+        busy = sum(replay_ms) / sum(wall_ms)
+        print(f"[engine] {mode}: {s['completed']}/{n_requests} requests, {s['tokens']} tokens "
+              f"in {s['wall_s']} s, {s['tokens_per_s']} tokens/s; TTFT p50 {s['ttft_p50_ms']} "
+              f"p99 {s['ttft_p99_ms']} ms; ITL p50 {s['itl_p50_ms']} p99 {s['itl_p99_ms']} ms; "
+              f"{eng.decode_iterations} decode iterations in {s['steps']} steps, decode step "
+              f"wall median {statistics.median(wall_ms)} ms, graph replay device median "
+              f"{statistics.median(replay_ms)} ms, device busy {100 * busy}% of decode wall; "
+              f"prefill {1e3 * rec['prefill_s'] / rec['chunks']} ms per {eng.chunk_size}-token "
+              f"chunk ({rec['chunks']} chunks); preemptions {s['preemptions']}, defrags "
+              f"{s['defrags']}, alloc failures {s['alloc_failures']}; graph captures "
+              f"{eng.graph_captures}, replays {eng.graph_replays}; max memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30} GiB; card {card}")
+        if s["completed"] != n_requests:
+            raise SystemExit(f"{mode} engine completed {s['completed']} of {n_requests}")
+        if eng.graph_captures != 1 or eng.graph_replays != eng.decode_iterations:
+            raise SystemExit(f"{mode} engine captured its decode graph {eng.graph_captures} "
+                             f"times and replayed it {eng.graph_replays} times in "
+                             f"{eng.decode_iterations} decode iterations")
+        if mode == "continuous" and s["preemptions"] < 1:
+            raise SystemExit(f"the trace did not preempt with {kv_blocks} KV blocks")
+        del eng, rec
+        gc.collect()   # the timing wrappers hold the engine in a cycle
+        torch.cuda.empty_cache()
+
+    # Greedy tokens: static against continuous, then the first requests
+    # against the dense KV-cache path, each up to the dense path's first
+    # top-2 logit gap under 1e-3 (the two attentions reduce over windows of
+    # different length, so f32 order may differ).
+    dense = TransformerLM(**lm, dtype=torch.float32, device=dev, attn_impl="dense")
+    dense.load_state_dict(params)
+    del params
+
+    def gaps_of(rid, toks):
+        seq = torch.tensor([prompts[rid] + toks], device=dev)
+        with torch.no_grad():
+            logits = dense(seq)[0, len(prompts[rid]) - 1:-1]
+        return _top2_gaps(logits)
+
+    for rid, want in tokens["continuous"].items():
+        got = tokens["static"][rid]
+        if got != want:
+            j = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+            gap = gaps_of(rid, want)[j]
+            print(f"[engine] static and continuous differ for rid {rid} at token {j}; "
+                  f"top-2 logit gap there {gap}")
+            if not gap < 1e-3:
+                raise SystemExit("static and continuous modes emit different tokens")
+    # Against the dense path: identical up to the first differing token,
+    # and that token sits where the dense top-2 gap is under 1e-3 (the
+    # tokens before it are the same, so the dense logits there hold for
+    # both).  Also counted: the tokens before each request's first gap
+    # under 1e-3, compared or not.
+    compared = before_gap = total = 0
+    for rid in range(n_dense):
+        got = tokens["continuous"][rid]
+        want = greedy_generate(dense, torch.tensor([prompts[rid]], device=dev), len(got),
+                               flash_prefill=False)[0].tolist()
+        gaps = gaps_of(rid, want)
+        diff = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), len(want))
+        if diff < len(want) and not gaps[diff] < 1e-3:
+            raise SystemExit(f"engine and dense path disagree for rid {rid} at token {diff}, "
+                             f"where the dense top-2 logit gap is {gaps[diff]}")
+        compared += diff
+        before_gap += next((j for j, g in enumerate(gaps) if g < 1e-3), len(want))
+        total += len(want)
+    print(f"[engine] first {n_dense} requests against the dense path: {compared} of {total} "
+          f"tokens identical before the first difference, which (if any) sits at a top-2 "
+          f"gap under 1e-3; {before_gap} of {total} before each request's first gap under "
+          f"1e-3")
+    if compared < 0.9 * total:
+        raise SystemExit(f"only {compared} of {total} tokens compared with the dense path")
+    del dense
+    torch.cuda.empty_cache()
+
+    os.makedirs("build", exist_ok=True)
+    summary_path = "build/serve_lm_smoke.json"
+    rc = serve_lm.main([
+        "--vocab-size", str(lm["vocab_size"]), "--d-model", str(lm["d_model"]),
+        "--n-heads", str(lm["n_heads"]), "--n-layers", str(lm["n_layers"]),
+        "--max-batch", "16", "--kv-blocks", str(kv_blocks), "--block-size", "16",
+        "--blocks-per-seq", "64", "--chunk-size", "128", "--max-new-tokens", "384",
+        "--requests", str(entry_requests), "--summary-json", summary_path, "--device", str(dev)])
+    with open(summary_path) as f:
+        completed = json.load(f)["completed"]
+    print(f"[engine] serve_lm.main: rc {rc}, {completed}/{entry_requests} requests completed")
+    if rc != 0 or completed != entry_requests:
+        raise SystemExit(f"serve_lm returned {rc} with {completed} of {entry_requests} completed")
+    launched = [k.launches for k in kernels]
+    print(f"[engine] kernel launches K1-K5 during phase 12: {launched}")
+    if any(launched):
+        raise SystemExit("the serving engine launched a kernel it should not reach")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -724,6 +902,9 @@ def main() -> int:
     print(f"[image step] fused / unfused = {step_ms[True] / step_ms[False]} "
           f"({step_ms[True]} / {step_ms[False]} ms); card {card}")
 
+    # 12. the paged serving engine at full width
+    serving_engine_phase(dev, card, cfg)
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
@@ -751,7 +932,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-11 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-12 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,163 @@
+"""serve_lm — continuous-batching LM serving over the paged KV cache.
+
+The port of ``scripts/serve_lm.py``: builds a seeded random-init
+``TransformerLM`` parameter set, a ``ServingEngine`` with a paged KV pool
+and its decode step captured once as a CUDA graph, and drives a seeded
+synthetic load trace (serving/loadgen.py) through it, writing the serving
+SLO fields (TTFT / inter-token-latency percentiles, queue depth, KV
+occupancy, preemptions, tokens/s) into a MetricsLogger JSONL and printing
+the run summary as JSON.  The flags are the JAX script's plus ``--device``
+(default ``cuda``; ``cpu`` runs the same step eagerly).
+
+    python -m pytorch_distributed_tpu_torch.serving.serve_lm --device cpu --requests 8
+    python -m pytorch_distributed_tpu_torch.serving.serve_lm --mode static ...
+
+``--gamma``, ``--quant``, ``--checkpoint``, ``--slo-ttft-ms``,
+``--slo-kv-pct`` and ``--req-trace`` are parsed but not ported yet: each
+exits with the ROADMAP item that will port it.  ``--no-watchdog`` is
+accepted and does nothing.
+
+Exit status 0 iff every request completed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from pytorch_distributed_tpu_torch.obs.metrics import MetricsLogger
+from pytorch_distributed_tpu_torch.serving.engine import ServingEngine, init_lm_params
+from pytorch_distributed_tpu_torch.serving.loadgen import LoadConfig, generate_load
+
+# Flags parsed for the JAX script's surface, each with the ROADMAP item
+# (queue A) that will port it, and the value that leaves it off.
+NOT_PORTED = {
+    "gamma": ("A6 (speculative decoding in the engine)", 0),
+    "quant": ("A5 (int8 weight-only serving in the engine)", ""),
+    "checkpoint": ("A16 (checkpoints)", None),
+    "slo_ttft_ms": ("A12 (observability: live SLO alert rules)", None),
+    "slo_kv_pct": ("A12 (observability: live SLO alert rules)", None),
+    "req_trace": ("A12 (observability: per-request tracing)", False),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="serve_lm",
+        description="continuous-batching LM serving with a paged KV cache")
+    m = ap.add_argument_group("model")
+    m.add_argument("--vocab-size", type=int, default=64)
+    m.add_argument("--d-model", type=int, default=32)
+    m.add_argument("--n-heads", type=int, default=4)
+    m.add_argument("--n-layers", type=int, default=2)
+    m.add_argument("--quant", choices=("", "int8"), default="",
+                   help="int8 weight-only serving (not ported yet)")
+    m.add_argument("--checkpoint", default=None,
+                   help="serve real weights from an LM msgpack (not ported yet)")
+    m.add_argument("--gamma", type=int, default=0,
+                   help="speculative draft length (0 = off; not ported yet)")
+    m.add_argument("--draft-d-model", type=int, default=16)
+    m.add_argument("--draft-layers", type=int, default=1)
+
+    e = ap.add_argument_group("engine")
+    e.add_argument("--max-batch", type=int, default=4,
+                   help="decode slot count (the static [B] batch)")
+    e.add_argument("--kv-blocks", type=int, default=64,
+                   help="paged KV pool size in blocks (block 0 reserved)")
+    e.add_argument("--block-size", type=int, default=16,
+                   help="tokens per KV block")
+    e.add_argument("--blocks-per-seq", type=int, default=8,
+                   help="block-table width = per-sequence token cap / "
+                        "block size")
+    e.add_argument("--chunk-size", type=int, default=8,
+                   help="chunked-prefill chunk length")
+    e.add_argument("--max-new-tokens", type=int, default=16,
+                   help="cap on generated tokens per request")
+    e.add_argument("--mode", choices=("continuous", "static"),
+                   default="continuous",
+                   help="static = naive wave batching (the A/B baseline)")
+    e.add_argument("--policy", choices=("fcfs", "priority"),
+                   default="fcfs")
+    e.add_argument("--defrag-threshold-pct", type=float, default=50.0)
+    e.add_argument("--temperature", type=float, default=0.0)
+    e.add_argument("--top-k", type=int, default=0)
+    e.add_argument("--top-p", type=float, default=1.0)
+    e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    l = ap.add_argument_group("load")
+    l.add_argument("--requests", type=int, default=32)
+    l.add_argument("--rate-rps", type=float, default=50.0)
+    l.add_argument("--profile", choices=("mixed", "uniform"),
+                   default="mixed")
+    l.add_argument("--seed", type=int, default=0)
+
+    o = ap.add_argument_group("observability")
+    o.add_argument("--metrics-jsonl", default=None,
+                   help="serving SLO metrics JSONL, one record per step")
+    o.add_argument("--slo-ttft-ms", type=float, default=None,
+                   help="arm a live ttft_p99 alert rule (not ported yet)")
+    o.add_argument("--slo-kv-pct", type=float, default=None,
+                   help="arm a live kv_occupancy alert rule (not ported yet)")
+    o.add_argument("--req-trace", action="store_true", dest="req_trace",
+                   help="per-request span tracing (not ported yet)")
+    o.add_argument("--trace-sample", type=float, default=0.05,
+                   dest="trace_sample",
+                   help="span retention rate under --req-trace")
+    o.add_argument("--no-watchdog", action="store_true",
+                   help="accepted for the JAX script's surface and ignored: "
+                        "the port has no recompile watchdog, because its "
+                        "decode step is captured once as a CUDA graph by "
+                        "construction")
+    o.add_argument("--summary-json", default=None,
+                   help="write the run summary dict to this path")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for dest, (item, off) in NOT_PORTED.items():
+        if getattr(args, dest) != off:
+            raise SystemExit(f"--{dest.replace('_', '-')} is not ported to the "
+                             f"PyTorch package yet: ROADMAP.md item {item}")
+
+    params = init_lm_params(args.vocab_size, args.d_model, args.n_heads,
+                            args.n_layers, seed=args.seed, device=args.device)
+    obs = MetricsLogger(args.metrics_jsonl, flush_every=1)
+    eng = ServingEngine(
+        params, vocab_size=args.vocab_size, d_model=args.d_model,
+        n_heads=args.n_heads, n_layers=args.n_layers,
+        max_batch=args.max_batch, kv_blocks=args.kv_blocks,
+        block_size=args.block_size, blocks_per_seq=args.blocks_per_seq,
+        chunk_size=args.chunk_size, max_new_tokens=args.max_new_tokens,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        policy=args.policy, mode=args.mode,
+        defrag_threshold_pct=args.defrag_threshold_pct,
+        obs=obs, seed=args.seed, device=args.device)
+    del params
+
+    load = generate_load(LoadConfig(
+        n_requests=args.requests, rate_rps=args.rate_rps,
+        profile=args.profile, vocab_size=args.vocab_size, seed=args.seed))
+    for _, req in load:
+        req.max_new_tokens = min(req.max_new_tokens, args.max_new_tokens)
+
+    try:
+        summary = eng.run(load)
+    finally:
+        obs.close()
+
+    summary["recompile_anomalies"] = None
+    summary["decode_graph_captures"] = eng.graph_captures
+    summary["decode_graph_replays"] = eng.graph_replays
+    summary["decode_iterations"] = eng.decode_iterations
+    print(json.dumps(summary, indent=2, sort_keys=True))
+    if args.summary_json:
+        with open(args.summary_json, "w") as f:
+            json.dump(summary, f, indent=2, sort_keys=True)
+            f.write("\n")
+    return 0 if summary["completed"] == args.requests else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
