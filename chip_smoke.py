@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving, LM training and image training paths on one
-NVIDIA H100 and check them.
+"""Run the PyTorch port's serving, LM training and image training paths, and
+their checkpoints, on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -47,9 +47,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    times and bounds over one image step's 33 launches;
 9. drive the image training path through ``recipes.tpu_native`` with
    ``-a resnet50 --synthetic --fused-convbn -b 256 --image-size 224``, bf16,
-   for 8 train steps and 1 eval batch of 204 samples padded to 256: every
-   step must launch K4 33 times and K5 13 times, eval neither, and every
-   loss be finite;
+   for 8 train steps and 1 eval batch of 204 samples padded to 256 (its
+   epoch-end checkpoint goes to a temporary ``--checkpoint-dir``, deleted
+   after): every step must launch K4 33 times and K5 13 times, eval
+   neither, and every loss be finite;
 10. one f32 training step (TF32 off) of ResNet-50 at batch 8, fused and
     unfused, from the same weights: loss, every gradient and the updated
     running statistics must agree;
@@ -72,20 +73,45 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     ``serving.serve_lm.main`` serve 16 requests; none of K1-K5 may launch.
     Prints tokens/s, TTFT and ITL percentiles, decode-step wall time and
     the device-busy share of a decode step (CUDA events around each graph
-    replay), prefill ms per chunk, preemptions, defrags and peak memory.
+    replay), prefill ms per chunk, preemptions, defrags and peak memory;
+13. checkpoints at full width, every file under a temporary directory
+    deleted after (~3 GB with rotation), in the JAX package's msgpack
+    format: (a) ``recipes.lm_pretrain`` of the 183.9M LM (L=4096, B=4, bf16
+    compute, f32 weights, no eval) for 6 steps, again for 4 steps with
+    ``--save-steps 2 --checkpoint-dir``, then ``--resume`` to step 6: the
+    resumed run must launch K1, K2 and K3 once per layer per step, and its
+    losses, weights and momentum equal the uninterrupted run's (bitwise
+    expected; anything worse than loss rel 1e-6, weights rtol 1e-6 / atol
+    1e-7 fails); prints the file's size and its save and load times;
+    (b) ``recipes.lm_generate --resume`` on the resumed run's file must give
+    the greedy tokens of the same weights in memory, prefilling 4096
+    tokens through K1 once per layer; (c) ``serving.serve_lm --checkpoint``
+    on that file must complete 16 requests; (d) ResNet-50 ``--fused-convbn``
+    b256 bf16, cuDNN deterministic: a 4-step epoch stopped by the trainer's
+    own API after step 2 (where ``--save-steps 2`` saved) and resumed must
+    launch K4 33 and K5 13 times per step and end equal to an uninterrupted
+    epoch under the same rule;
+14. run the ``bench.py`` twin (``tools/bench.py``: ResNet-50 b256 bf16
+    synthetic step, unfused then fused) and print its JSON line tagged
+    ``[bench]``; a non-finite loss or a failed variant fails the run.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
 non-zero without one.
 """
 
+import contextlib
 import gc
+import io
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -116,9 +142,18 @@ from pytorch_distributed_tpu_torch.recipes import lm_generate, lm_pretrain, tpu_
 from pytorch_distributed_tpu_torch.serving import serve_lm
 from pytorch_distributed_tpu_torch.serving.engine import ServingEngine, init_lm_params
 from pytorch_distributed_tpu_torch.serving.loadgen import LoadConfig, generate_load
+from pytorch_distributed_tpu_torch.tools import bench
+from pytorch_distributed_tpu_torch.train.checkpoint import (
+    CHECKPOINT_NAME,
+    load_checkpoint,
+    save_checkpoint,
+)
+from pytorch_distributed_tpu_torch.train.config import parse_config
 from pytorch_distributed_tpu_torch.train.lm import lm_loss
 from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.train.steps import make_train_step
+from pytorch_distributed_tpu_torch.train.trainer import Trainer
+from pytorch_distributed_tpu_torch.utils.convert import momentum_state_dict
 
 
 def _ms(fn, iters, warmup=2):
@@ -357,6 +392,201 @@ def serving_engine_phase(dev, card, lm, kv_blocks=385, n_requests=64, n_dense=8,
     print(f"[engine] kernel launches K1-K5 during phase 12: {launched}")
     if any(launched):
         raise SystemExit("the serving engine launched a kernel it should not reach")
+    torch.cuda.empty_cache()
+
+
+def _state(model, optimizer):
+    """Clones of the weights, buffers and SGD momentum of a trained model."""
+    out = {k: t.detach().clone() for k, t in model.state_dict().items()}
+    out.update({f"momentum:{k}": t.detach().clone()
+                for k, t in momentum_state_dict(model, optimizer).items()})
+    return out
+
+
+def _same_run(tag, losses, want_losses, state, want_state):
+    """Hold a resumed run against the uninterrupted one: bitwise equality is
+    expected; anything worse than tests/test_ft.py's resume tolerance (loss
+    rel 1e-6, weights rtol 1e-6 / atol 1e-7) fails."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    errs = {k: (t.float() - want_state[k].float()).abs().max().item() for k, t in state.items()}
+    worst = max(errs, key=errs.get)
+    bitwise = losses == want_losses and all(torch.equal(t, want_state[k])
+                                            for k, t in state.items())
+    close = all(torch.allclose(t.float(), want_state[k].float(), rtol=1e-6, atol=1e-7)
+                for k, t in state.items())
+    print(f"[checkpoint] {tag}: resumed losses {losses} vs uninterrupted {want_losses} (max rel "
+          f"err {loss_err}); {len(state)} weight, buffer and momentum tensors, worst "
+          f"{worst} max abs err {errs[worst]}; bitwise equal: {bitwise}")
+    if len(losses) != len(want_losses) or loss_err > 1e-6 or not close:
+        raise SystemExit(f"{tag}: the resumed run does not end where the uninterrupted one "
+                         f"does (worst tensor {worst})")
+
+
+def _tokens_of(main, argv):
+    """Run a recipe's ``main(argv)`` and read its ``tokens: [...]`` line."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    text = out.getvalue()
+    sys.stdout.write(text)
+    m = re.search(r"^tokens: (\[.*\])$", text, re.M)
+    if rc != 0 or m is None:
+        raise SystemExit(f"{main.__module__} returned {rc} with no tokens line")
+    return json.loads(m.group(1))
+
+
+def checkpoint_phase(dev, card, cfg, prompt_tokens):
+    """Phase 13: save and resume at full width (LM and ResNet-50), then
+    sample and serve from the LM's file.  Returns the kernel launches of
+    the resumed runs: (K1, K2, K3, K4, K5)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        return _checkpoint_phase(dev, card, cfg, prompt_tokens, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _checkpoint_phase(dev, card, cfg, prompt_tokens, tmp):
+    L = cfg["n_layers"]
+    lm = ["--vocab", str(cfg["vocab_size"]), "--d-model", str(cfg["d_model"]), "--n-heads",
+          str(cfg["n_heads"]), "--n-layers", str(L), "--seq-len", "4096", "-b", "4",
+          "--precision", "bf16", "-p", "1", "--no-eval", "--device", "cuda"]
+    # (a) 6 steps uninterrupted; 4 steps saving every 2; resume to step 6.
+    ref = lm_pretrain.run(lm + ["--steps", "6"])
+    want_losses, want = [float(x) for x in ref.losses], _state(ref.model, ref.optimizer)
+    del ref
+    torch.cuda.empty_cache()
+    d = os.path.join(tmp, "lm")
+    first = lm_pretrain.run(lm + ["--steps", "4", "--save-steps", "2", "--checkpoint-dir", d])
+    first_losses = [float(x) for x in first.losses]
+    del first
+    torch.cuda.empty_cache()
+    path = os.path.join(d, CHECKPOINT_NAME)
+    flash_attention.launches = 0
+    flash_attention_bwd_dq.launches = flash_attention_bwd_dkv.launches = 0
+    resumed = lm_pretrain.run(lm + ["--steps", "6", "--resume", path, "--checkpoint-dir", d])
+    torch.cuda.synchronize()
+    lm_launches = (flash_attention.launches, flash_attention_bwd_dq.launches,
+                   flash_attention_bwd_dkv.launches)
+    print(f"[checkpoint] LM resume from step {resumed._start_step}: launches K1/K2/K3 "
+          f"{lm_launches} over {len(resumed.losses)} steps")
+    if lm_launches != (2 * L,) * 3 or resumed._start_step != 4:
+        raise SystemExit(f"the resumed LM run launched (K1, K2, K3) {lm_launches} times "
+                         f"from step {resumed._start_step}, expected {(2 * L,) * 3} from 4")
+    _same_run("LM 183.9M, L=4096 B=4 bf16", first_losses + [float(x) for x in resumed.losses],
+              want_losses, _state(resumed.model, resumed.optimizer), want)
+    del want
+    # The file's size and the save and load times, at full width.
+    d2 = os.path.join(tmp, "timed")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = save_checkpoint(d2, resumed.model, resumed.optimizer, 6, 0, "transformer_lm", 0.0,
+                            False, ft={"step": 6, "global_step": 6})
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, _ = load_checkpoint(timed, resumed.model, resumed.optimizer)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    print(f"[checkpoint] LM file {os.path.getsize(timed)} bytes (params and momentum, "
+          f"{sum(p.numel() for p in resumed.model.parameters())} parameters): save "
+          f"{t_save} s, load {t_load} s (step {step}); card {card}")
+
+    # (b) lm_generate --resume on the resumed run's final file, against the
+    # same weights in memory.
+    n_new = 8
+    gen_args = ["--vocab", str(cfg["vocab_size"]), "--d-model", str(cfg["d_model"]),
+                "--n-heads", str(cfg["n_heads"]), "--n-layers", str(L), "--precision", "bf16",
+                "--prompt-tokens", prompt_tokens, "-n", str(n_new), "--device", "cuda"]
+    flash_attention.launches = 0
+    got = _tokens_of(lm_generate.main, gen_args + ["--resume", path])
+    torch.cuda.synchronize()
+    gen_launches = flash_attention.launches
+    mem = TransformerLM(**cfg, dtype=torch.bfloat16, device=dev)
+    mem.load_state_dict(resumed.model.state_dict())
+    del resumed
+    flash_attention.launches = 0   # the in-memory reference's prefill is not counted
+    prompt = torch.tensor([[int(t) for t in prompt_tokens.split(",")]], device=dev)
+    ref_tokens = generate(mem, prompt, n_new)[0].tolist()
+    flash_attention.launches = 0
+    del mem
+    torch.cuda.empty_cache()
+    print(f"[checkpoint] lm_generate --resume: tokens {got}, in-memory weights {ref_tokens}; "
+          f"K1 launches {gen_launches}")
+    if got != ref_tokens or gen_launches != L:
+        raise SystemExit("lm_generate --resume disagrees with the trained weights or did not "
+                         "prefill through K1 once per layer")
+
+    # (c) serve_lm --checkpoint on the same file.
+    summary_path = os.path.join(tmp, "serve.json")
+    rc = serve_lm.main(["--checkpoint", path, "--n-heads", str(cfg["n_heads"]),
+                        "--max-batch", "16", "--kv-blocks", "385", "--block-size", "16",
+                        "--blocks-per-seq", "64", "--chunk-size", "128",
+                        "--max-new-tokens", "384", "--requests", "16",
+                        "--summary-json", summary_path, "--device", "cuda"])
+    with open(summary_path) as f:
+        completed = json.load(f)["completed"]
+    print(f"[checkpoint] serve_lm --checkpoint: rc {rc}, {completed}/16 requests completed")
+    if rc != 0 or completed != 16:
+        raise SystemExit(f"serve_lm --checkpoint returned {rc} with {completed} of 16 completed")
+    torch.cuda.empty_cache()
+
+    # (d) ResNet-50 resumed mid-epoch: a 4-step epoch stopped by the
+    # trainer's own API after step 2, where --save-steps 2 saved, then
+    # resumed.  cuDNN runs its deterministic algorithms here (the stride-2
+    # and stem convolutions' backward), so two runs can be equal bitwise.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        img = ["-a", "resnet50", "--synthetic", "--fused-convbn", "-b", "256",
+               "--image-size", "224", "--synthetic-length", "1024", "--epochs", "1",
+               "--precision", "bf16", "--seed", "0", "-p", "1", "--device", "cuda"]
+        ref = Trainer(parse_config(img + ["--checkpoint-dir", os.path.join(tmp, "img_ref")]))
+        ref.fit()
+        want_losses, want = [float(x) for x in ref.losses], _state(ref.model, ref.optimizer)
+        del ref
+        torch.cuda.empty_cache()
+        d = os.path.join(tmp, "img")
+        first = Trainer(parse_config(img + ["--checkpoint-dir", d, "--save-steps", "2"]))
+        if first.train_epoch(0, stop_after=2) != 2:
+            raise SystemExit("the image trainer did not stop after step 2")
+        first_losses = [float(x) for x in first.losses]
+        del first
+        torch.cuda.empty_cache()
+        path = os.path.join(d, CHECKPOINT_NAME)
+        size = os.path.getsize(path)
+        fused_dgrad_wgrad.launches = fused_dgrad_wgrad_3x3.launches = 0
+        resumed = Trainer(parse_config(img + ["--checkpoint-dir", d, "--resume", path]))
+        resumed.fit()
+        torch.cuda.synchronize()
+        img_launches = (fused_dgrad_wgrad.launches, fused_dgrad_wgrad_3x3.launches)
+        print(f"[checkpoint] ResNet-50 resume at epoch 0 step {resumed._resume_step} from a "
+              f"{size}-byte file: launches K4/K5 {img_launches} over {len(resumed.losses)} "
+              f"steps and 1 eval batch")
+        if img_launches != (2 * 33, 2 * 13) or len(resumed.losses) != 2:
+            raise SystemExit(f"the resumed image run launched (K4, K5) {img_launches} times in "
+                             f"{len(resumed.losses)} steps, expected (66, 26) in 2")
+        _same_run("ResNet-50 --fused-convbn b256 bf16", first_losses
+                  + [float(x) for x in resumed.losses], want_losses,
+                  _state(resumed.model, resumed.optimizer), want)
+        del resumed, want
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    return lm_launches + (gen_launches,) + img_launches
+
+
+def bench_phase(card):
+    """Phase 14: the bench.py twin's JSON line, tagged."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main([])
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        raise SystemExit(f"tools.bench returned {rc} with output {lines}")
+    rec = json.loads(lines[0])
+    print(f"[bench] {lines[0]}")
+    if not rec["value"] > 0:
+        raise SystemExit(f"tools.bench measured {rec['value']}")
     torch.cuda.empty_cache()
 
 
@@ -796,11 +1026,15 @@ def main() -> int:
     steps, per_step = 8, (33, 13)
     fused_dgrad_wgrad.launches = fused_dgrad_wgrad_3x3.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    image = tpu_native.run([
-        "-a", "resnet50", "--synthetic", "--fused-convbn", "-b", "256", "--image-size", "224",
-        "--synthetic-length", str(256 * steps), "--epochs", "1", "--precision", "bf16",
-        "--seed", "0", "-p", "1", "--epoch-csv", "build/tpu_native_smoke.csv",
-        "--device", "cuda"])
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_image_")  # the epoch-end save
+    try:
+        image = tpu_native.run([
+            "-a", "resnet50", "--synthetic", "--fused-convbn", "-b", "256", "--image-size",
+            "224", "--synthetic-length", str(256 * steps), "--epochs", "1", "--precision",
+            "bf16", "--seed", "0", "-p", "1", "--epoch-csv", "build/tpu_native_smoke.csv",
+            "--checkpoint-dir", ckpt_dir, "--device", "cuda"])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.synchronize()
     image_launches = (fused_dgrad_wgrad.launches, fused_dgrad_wgrad_3x3.launches)
     want = (per_step[0] * steps, per_step[1] * steps)
@@ -905,17 +1139,27 @@ def main() -> int:
     # 12. the paged serving engine at full width
     serving_engine_phase(dev, card, cfg)
 
+    # 13. checkpoints at full width: resume, sample and serve from the files
+    t0 = time.perf_counter()
+    k1, k2, k3, k1_gen, k4, k5 = checkpoint_phase(dev, card, cfg, recipe_prompt)
+    print(f"[time] phase 13 took {time.perf_counter() - t0} s")
+
+    # 14. the bench.py twin
+    t0 = time.perf_counter()
+    bench_phase(card)
+    print(f"[time] phase 14 took {time.perf_counter() - t0} s")
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
         source="pytorch_distributed_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="pytorch_distributed_tpu/ops/flash_attention.py:37",
-        launches=serve_launches + train_launches[0], max_abs_err=path["err"],
+        launches=serve_launches + train_launches[0] + k1 + k1_gen, max_abs_err=path["err"],
         ms=path["ms"], plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
         bound_by=path["bound_by"], library_ms=path["library_ms"])]
     bpath = bwd["path"]
-    for name, key, line, n in (("flash_attention_bwd_dq", "dq", 185, train_launches[1]),
-                               ("flash_attention_bwd_dkv", "dkv", 214, train_launches[2])):
+    for name, key, line, n in (("flash_attention_bwd_dq", "dq", 185, train_launches[1] + k2),
+                               ("flash_attention_bwd_dkv", "dkv", 214, train_launches[2] + k3)):
         kernels.append(dict(
             name=name, route="cuda",
             source="pytorch_distributed_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -923,8 +1167,9 @@ def main() -> int:
             launches=n, max_abs_err=bpath[key]["err"], ms=bpath[key]["ms"],
             plain_ms=bpath["plain_ms"], bound_ms=bpath[key]["bound_ms"],
             bound_by=bpath[key]["bound_by"], library_ms=bpath["library_ms"]))
-    for name, key, line, n in (("fused_dgrad_wgrad", "k4_path", 122, image_launches[0]),
-                               ("fused_dgrad_wgrad_3x3", "k5_path", 210, image_launches[1])):
+    for name, key, line, n in (("fused_dgrad_wgrad", "k4_path", 122, image_launches[0] + k4),
+                               ("fused_dgrad_wgrad_3x3", "k5_path", 210,
+                                image_launches[1] + k5)):
         kp = conv[key]
         kernels.append(dict(
             name=name, route="cuda",
@@ -932,7 +1177,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-12 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-14 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -73,9 +73,20 @@ class DataLoader:
         return {"images": images, "labels": labels, "weights": val.astype(np.float32)}
 
     def __iter__(self) -> Iterator[Batch]:
+        return self.iter_batches(0)
+
+    def iter_batches(self, start: int = 0) -> Iterator[Batch]:
+        """Iterate from batch ``start`` of this epoch's shard: the
+        step-granular resume path.  The sampler's (seed, epoch) permutation
+        is recomputed and the first ``start`` batches are skipped by index
+        arithmetic (nothing fetched), so the stream continues exactly where
+        the checkpointed run left off."""
         indices, valid = self.sampler.shard()
+        nb = len(self)
+        if not 0 <= start <= nb:
+            raise ValueError(f"resume step {start} out of range for {nb} batches/epoch")
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-            for b in range(len(self)):
+            for b in range(start, nb):
                 idx, val = self._batch_indices(indices, valid, b)
                 yield self._assemble(val, list(pool.map(self._fetch, idx, val)))
 

@@ -1,16 +1,21 @@
 """Sample from a TransformerLM: the port of ``pytorch_distributed_tpu/recipes/lm_generate.py``.
 
-Prefill the prompt into the KV caches and decode with greedy / temperature /
+Load a checkpoint written by ``lm_pretrain`` of either package (the msgpack
+file; the model flags must match its arch), prefill the prompt into the KV caches and decode with greedy / temperature /
 top-k / nucleus sampling (``models/generate.py``).  The flag surface is the
 JAX recipe's plus ``--device`` (default ``cuda``; ``--device cpu`` runs the
 plain versions of the kernels).  With a byte vocab (``--vocab 256``)
 ``--prompt`` is encoded as UTF-8 bytes and the continuation decoded back.
 
+    python -m pytorch_distributed_tpu_torch.recipes.lm_generate \
+        --resume runs/lm/checkpoint.msgpack --vocab 256 --d-model 256 \
+        --n-heads 8 --n-layers 4 --prompt "def main(" -n 64
     python -m pytorch_distributed_tpu_torch.recipes.lm_generate --random-init \
         --prompt-tokens 1,2,3 -n 8
 
-``--resume``, ``--quant``, ``--tp`` and ``--spec-draft`` are parsed but not
-ported yet: each exits with the ROADMAP item that will port it.
+``--quant``, ``--tp`` and ``--spec-draft`` are parsed but not ported yet:
+each exits with the ROADMAP item that will port it.  Orbax checkpoint
+directories exit too: orbax imports JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from pytorch_distributed_tpu_torch.models.generate import generate
 from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
+from pytorch_distributed_tpu_torch.train.checkpoint import load_checkpoint
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
 # Flags parsed for the JAX recipe's surface, each with the ROADMAP item
@@ -30,16 +36,17 @@ NOT_PORTED = {
     "quant": "A5 (int8 weight-only serving, --quant)",
     "spec_draft": "A6 (speculative decoding, --spec-draft)",
     "tp": "A7 (model-parallel decode, --tp)",
-    "resume": "A8 (checkpoint loading, --resume)",
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="sample from a TransformerLM")
     p.add_argument("--resume", default="",
-                   help="checkpoint path from lm_pretrain (not ported yet)")
+                   help="checkpoint path (msgpack file) from lm_pretrain; "
+                        "model flags must match its arch")
     p.add_argument("--random-init", action="store_true",
-                   help="sample from a seeded random init (no checkpoint)")
+                   help="skip the checkpoint and sample from fresh init "
+                        "(smoke/testing)")
     p.add_argument("--vocab", type=int, default=256)
     p.add_argument("--d-model", type=int, default=256)
     p.add_argument("--n-heads", type=int, default=8)
@@ -92,15 +99,21 @@ def main(argv=None) -> int:
         if getattr(args, dest) not in ("", 1):
             raise SystemExit(f"--{dest.replace('_', '-')} is not ported to the "
                              f"PyTorch package yet: ROADMAP.md item {item}")
-    if not args.random_init:
-        raise SystemExit("provide --random-init (checkpoint loading is not "
-                         f"ported yet: ROADMAP.md item {NOT_PORTED['resume']})")
+    if not args.random_init and not args.resume:
+        raise SystemExit("provide --resume CHECKPOINT (or --random-init)")
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     model = TransformerLM(vocab_size=args.vocab, d_model=args.d_model,
                           n_heads=args.n_heads, n_layers=args.n_layers,
                           dtype=dtype, device=device)
     model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
+    if args.resume:
+        try:
+            _, meta = load_checkpoint(args.resume, model)
+        except NotImplementedError as e:  # an orbax checkpoint directory
+            raise SystemExit(str(e)) from e
+        print(f"loaded {args.resume} (epoch {meta.get('epoch')}, "
+              f"arch {meta.get('arch') or 'transformer_lm'})")
 
     prompt = torch.from_numpy(_encode_prompt(args)).to(device)
     out = generate(model, prompt, args.max_new_tokens,

@@ -6,6 +6,9 @@ affine token stream or on files (``--text-glob``), with the held-out eval
 and an optional greedy decode at the end.  Attention takes the flash
 kernels (K1 forward, K2 and K3 backward) where ``pick_attention_impl``
 picks them: on the card at ``--seq-len`` >= 4096, 1024-aligned.
+``--checkpoint-dir`` saves in the JAX package's format at the end (and every
+``--save-steps``); ``--resume`` continues from such a file, either package's,
+at its exact step.
 
     python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain \\
         --vocab 32000 --d-model 1024 --n-heads 16 --n-layers 12 \\
@@ -15,7 +18,7 @@ picks them: on the card at ``--seq-len`` >= 4096, 1024-aligned.
 
 The flag surface is the JAX recipe's plus ``--device`` (default ``cuda``).
 Every flag of a layer not ported yet (parallel layouts, fused CE, remat,
-checkpoints, fault tolerance, observability) is parsed, and a value other
+fault tolerance, observability) is parsed, and a value other
 than its default exits naming the ROADMAP item that will port it.  The JAX
 recipe's SIGTERM preemption guard is one of them: here SIGTERM ends the
 process.
@@ -42,7 +45,6 @@ _PARALLEL = "A10 (model parallelism: --tp, --sp, --ep, --pp, --fsdp)"
 _GRAD_COMM = "A9 (gradient-communication stack: --zero, --grad-compress, --overlap)"
 _FT = "A11 (fault tolerance: --nan-guard, --elastic, the preemption guard)"
 _OBS = "A12 (observability: metrics, heartbeats, ledgers, alerts)"
-_CKPT = "A16 (train/checkpoint.py: --checkpoint-dir, --resume, --save-steps)"
 # Flags parsed for the JAX recipe's surface but not ported, each with the
 # ROADMAP item (queue A) that will port it.
 NOT_PORTED = {
@@ -52,7 +54,6 @@ NOT_PORTED = {
     **dict.fromkeys(("tp", "sp", "sp_impl", "ep", "moe_top_k", "pp",
                      "microbatches", "schedule", "pp_virtual", "fsdp"), _PARALLEL),
     **dict.fromkeys(("zero", "grad_compress", "overlap", "bucket_mb"), _GRAD_COMM),
-    **dict.fromkeys(("checkpoint_dir", "resume", "save_steps"), _CKPT),
     **dict.fromkeys(("preempt_signals", "nan_guard", "ft_rollback_k",
                      "ft_check_every", "ft_lr_backoff", "elastic", "min_ranks",
                      "rescale_lr"), _FT),
@@ -112,12 +113,16 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="MIB", help="not ported yet")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("-p", "--print-freq", type=int, default=10)
-    p.add_argument("--checkpoint-dir", type=str, default=None,
-                   help="not ported yet")
+    p.add_argument("--checkpoint-dir", type=str, default=None)
     p.add_argument("--resume", type=str, default=None, metavar="PATH",
-                   help="not ported yet")
+                   help="resume from a checkpoint: restores params/momentum "
+                        "AND the exact step (the ft record), so the run "
+                        "continues mid-stream instead of restarting")
     p.add_argument("--save-steps", type=int, default=0, dest="save_steps",
-                   metavar="N", help="not ported yet")
+                   metavar="N",
+                   help="also checkpoint every N steps (step-granular "
+                        "resume: a lost process loses at most N steps); "
+                        "0 = end-of-run only")
     p.add_argument("--preempt-signals", type=str, default="term",
                    dest="preempt_signals", metavar="SIGS", help="not ported yet")
     p.add_argument("--nan-guard", action="store_true", dest="nan_guard",
@@ -227,11 +232,16 @@ def run(argv=None) -> LMTrainer:
             args.vocab, seed=args.seed + 1)
     schedule = (warmup_cosine_lr(args.lr, args.warmup_steps, args.steps)
                 if args.warmup_steps > 0 else None)
-    trainer = LMTrainer(model, dataset, args.batch_size, lr=args.lr,
-                        eval_dataset=eval_dataset, eval_every=args.eval_every,
-                        eval_batches=args.eval_batches, lr_schedule=schedule,
-                        clip_grad_norm=args.clip_grad_norm,
-                        accum_steps=args.accum_steps)
+    try:
+        trainer = LMTrainer(model, dataset, args.batch_size, lr=args.lr,
+                            eval_dataset=eval_dataset, eval_every=args.eval_every,
+                            eval_batches=args.eval_batches, lr_schedule=schedule,
+                            clip_grad_norm=args.clip_grad_norm,
+                            accum_steps=args.accum_steps,
+                            checkpoint_dir=args.checkpoint_dir,
+                            save_steps=args.save_steps, resume=args.resume)
+    except NotImplementedError as e:  # an orbax checkpoint directory
+        raise SystemExit(str(e)) from e
     final_loss = trainer.fit(args.steps, print_freq=args.print_freq)
     if args.generate > 0:
         prompt = torch.from_numpy(dataset.batch(0, 1)[:, :min(16, args.seq_len // 2)])

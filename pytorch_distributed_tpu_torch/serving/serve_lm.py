@@ -1,7 +1,9 @@
 """serve_lm — continuous-batching LM serving over the paged KV cache.
 
 The port of ``scripts/serve_lm.py``: builds a seeded random-init
-``TransformerLM`` parameter set, a ``ServingEngine`` with a paged KV pool
+``TransformerLM`` parameter set (or reads one with ``--checkpoint``: an
+``lm_pretrain`` checkpoint of either package, or a bare params tree in the
+same msgpack format), a ``ServingEngine`` with a paged KV pool
 and its decode step captured once as a CUDA graph, and drives a seeded
 synthetic load trace (serving/loadgen.py) through it, writing the serving
 SLO fields (TTFT / inter-token-latency percentiles, queue depth, KV
@@ -12,9 +14,9 @@ the run summary as JSON.  The flags are the JAX script's plus ``--device``
     python -m pytorch_distributed_tpu_torch.serving.serve_lm --device cpu --requests 8
     python -m pytorch_distributed_tpu_torch.serving.serve_lm --mode static ...
 
-``--gamma``, ``--quant``, ``--checkpoint``, ``--slo-ttft-ms``,
-``--slo-kv-pct`` and ``--req-trace`` are parsed but not ported yet: each
-exits with the ROADMAP item that will port it.  ``--no-watchdog`` is
+``--gamma``, ``--quant``, ``--slo-ttft-ms``, ``--slo-kv-pct`` and
+``--req-trace`` are parsed but not ported yet: each exits with the ROADMAP
+item that will port it.  ``--no-watchdog`` is
 accepted and does nothing.
 
 Exit status 0 iff every request completed.
@@ -29,13 +31,15 @@ import sys
 from pytorch_distributed_tpu_torch.obs.metrics import MetricsLogger
 from pytorch_distributed_tpu_torch.serving.engine import ServingEngine, init_lm_params
 from pytorch_distributed_tpu_torch.serving.loadgen import LoadConfig, generate_load
+from pytorch_distributed_tpu_torch.train.checkpoint import read_payload
+from pytorch_distributed_tpu_torch.utils.convert import lm_state_dict_from_jax
+from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
 # Flags parsed for the JAX script's surface, each with the ROADMAP item
 # (queue A) that will port it, and the value that leaves it off.
 NOT_PORTED = {
     "gamma": ("A6 (speculative decoding in the engine)", 0),
     "quant": ("A5 (int8 weight-only serving in the engine)", ""),
-    "checkpoint": ("A16 (checkpoints)", None),
     "slo_ttft_ms": ("A12 (observability: live SLO alert rules)", None),
     "slo_kv_pct": ("A12 (observability: live SLO alert rules)", None),
     "req_trace": ("A12 (observability: per-request tracing)", False),
@@ -54,7 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--quant", choices=("", "int8"), default="",
                    help="int8 weight-only serving (not ported yet)")
     m.add_argument("--checkpoint", default=None,
-                   help="serve real weights from an LM msgpack (not ported yet)")
+                   help="serve real weights from an LM msgpack (an lm_pretrain "
+                        "checkpoint or a bare params tree; vocab/d_model/"
+                        "n_layers are read from it, --n-heads must match)")
     m.add_argument("--gamma", type=int, default=0,
                    help="speculative draft length (0 = off; not ported yet)")
     m.add_argument("--draft-d-model", type=int, default=16)
@@ -114,6 +120,27 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def load_checkpoint_params(path: str, device="cuda"):
+    """Read an LM msgpack (``payload["state"]["params"]`` of a checkpoint,
+    or a bare params tree) and return ``(state_dict on device, vocab_size,
+    d_model, n_layers)`` with the dims inferred from the tree itself
+    (n_heads never shapes it)."""
+    try:
+        payload = read_payload(path)
+    except NotImplementedError as e:  # an orbax checkpoint directory
+        raise SystemExit(str(e)) from e
+    state = payload.get("state", payload)
+    params = state.get("params", state)
+    if "embed" not in params:
+        raise SystemExit(
+            f"--checkpoint {path}: not an LM param tree (missing 'embed');"
+            " convert with scripts/import_torch_checkpoint.py")
+    vocab, d_model = params["embed"]["embedding"].shape
+    n_layers = sum(1 for k in params if k.startswith("block_"))
+    return (lm_state_dict_from_jax(params, device=resolve_device(device)), int(vocab),
+            int(d_model), n_layers)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     for dest, (item, off) in NOT_PORTED.items():
@@ -121,8 +148,12 @@ def main(argv=None) -> int:
             raise SystemExit(f"--{dest.replace('_', '-')} is not ported to the "
                              f"PyTorch package yet: ROADMAP.md item {item}")
 
-    params = init_lm_params(args.vocab_size, args.d_model, args.n_heads,
-                            args.n_layers, seed=args.seed, device=args.device)
+    if args.checkpoint:
+        (params, args.vocab_size, args.d_model,
+         args.n_layers) = load_checkpoint_params(args.checkpoint, args.device)
+    else:
+        params = init_lm_params(args.vocab_size, args.d_model, args.n_heads,
+                                args.n_layers, seed=args.seed, device=args.device)
     obs = MetricsLogger(args.metrics_jsonl, flush_every=1)
     eng = ServingEngine(
         params, vocab_size=args.vocab_size, d_model=args.d_model,

@@ -7,10 +7,10 @@ plus ``--device`` (default ``cuda``).
 Every flag is parsed.  ``check_ported`` exits naming the ROADMAP item that
 will port a flag whose value differs from its default and whose layer is
 not ported yet: the ImageFolder data path (A17), distribution (A18), SyncBN
-(A19), the gradient-communication stack (A9), checkpoints (A16), the fused
-CE head (A14), fault tolerance beyond the in-step ``--nan-guard`` gate
-(A11) and observability beyond the epoch CSV (A12).  The port's trainer
-saves no checkpoints.
+(A19), the gradient-communication stack (A9), the fused CE head (A14), fault
+tolerance beyond the in-step ``--nan-guard`` gate and the checkpoints
+(A11) and observability beyond the epoch CSV (A12).  ``--ckpt-backend
+orbax`` exits too: orbax imports JAX, so the port keeps the msgpack format.
 """
 
 from __future__ import annotations
@@ -21,11 +21,11 @@ from typing import Optional
 
 from pytorch_distributed_tpu_torch import models
 from pytorch_distributed_tpu_torch.ops.fused_bn import SYNC_BN_ITEM as _SYNC_BN
+from pytorch_distributed_tpu_torch.train.checkpoint import ORBAX_MESSAGE
 
 _DATA = "A17 (ImageFolder, transforms, the uint8 wire modes, worker processes)"
 _DIST = "A18 (multi-process data parallelism: DDP over NCCL and the six other image recipes)"
 _GRAD_COMM = "A9 (gradient-communication stack: --zero, --grad-compress, --overlap)"
-_CKPT = "A16 (train/checkpoint.py: checkpoints, --resume, --pretrained)"
 _FUSED_CE = "A14 (fused tied-head cross-entropy, --fused-ce)"
 _FT = "A11 (fault tolerance: rollback policy, --elastic, the preemption guard)"
 _OBS = "A12 (observability: metrics, heartbeats, profiles, ledgers, alerts)"
@@ -36,8 +36,6 @@ NOT_PORTED = {
     "dist_file": _DIST,
     "sync_bn": _SYNC_BN,
     **dict.fromkeys(("grad_compress", "zero", "overlap", "bucket_mb"), _GRAD_COMM),
-    **dict.fromkeys(("pretrained", "resume", "checkpoint_dir", "ckpt_backend",
-                     "save_steps"), _CKPT),
     **dict.fromkeys(("fused_ce_chunks", "fused_ce_mode"), _FUSED_CE),
     **dict.fromkeys(("ft_rollback_k", "ft_check_every", "ft_lr_backoff",
                      "preempt_signals", "elastic", "min_ranks", "rescale_lr"), _FT),
@@ -158,7 +156,9 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
         help="print frequency (default: 10)")
     add("-e", "--evaluate", dest="evaluate", action="store_true",
         help="evaluate model on validation set")
-    add("--pretrained", dest="pretrained", action="store_true", help=_NOT_PORTED_HELP)
+    add("--pretrained", dest="pretrained", action="store_true",
+        help="start from $PTD_TPU_PRETRAINED_DIR/<arch>.msgpack (default directory "
+        "pretrained/), a checkpoint either package saved for the same arch")
     add("--seed", default=d.seed, type=int, help="seed for initializing training")
     add("--dist-file", default=d.dist_file, type=str, help=_NOT_PORTED_HELP)
     add("--precision", default=d.precision, choices=("fp32", "bf16"),
@@ -181,12 +181,16 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
     add("--overlap", default=d.overlap, choices=("none", "bucketed"), help=_NOT_PORTED_HELP)
     add("--bucket-mb", default=d.bucket_mb, type=float, dest="bucket_mb", metavar="MIB",
         help=_NOT_PORTED_HELP)
-    add("--resume", default=d.resume, type=str, metavar="PATH", help=_NOT_PORTED_HELP)
-    add("--checkpoint-dir", default=d.checkpoint_dir, type=str, help=_NOT_PORTED_HELP)
+    add("--resume", default=d.resume, type=str, metavar="PATH",
+        help="resume from a checkpoint file (either package's): weights, momentum, BN "
+        "statistics and the exact step")
+    add("--checkpoint-dir", default=d.checkpoint_dir, type=str,
+        help="where checkpoint.msgpack (each epoch's end and every --save-steps) and "
+        "model_best.msgpack go (default: runs)")
     add("--ckpt-backend", default=d.ckpt_backend, choices=("msgpack", "orbax"),
-        dest="ckpt_backend", help=_NOT_PORTED_HELP)
+        dest="ckpt_backend", help="msgpack; orbax imports JAX and is not ported")
     add("--save-steps", default=d.save_steps, type=int, dest="save_steps", metavar="N",
-        help=_NOT_PORTED_HELP)
+        help="also checkpoint every N steps inside an epoch (0 = epoch ends only)")
     add("--nan-guard", action="store_true", dest="nan_guard",
         help="skip (inside the step, with no host sync) the update of a batch whose "
         "loss or gradient norm is not finite: parameters, momentum and BN statistics "
@@ -243,6 +247,8 @@ def check_ported(cfg: Config, parser: argparse.ArgumentParser) -> None:
     if not cfg.synthetic:
         raise SystemExit("--data (the ImageFolder path) is not ported to the PyTorch "
                          f"package yet: pass --synthetic; ROADMAP.md item {_DATA}")
+    if cfg.ckpt_backend == "orbax":
+        raise SystemExit(f"--ckpt-backend orbax: {ORBAX_MESSAGE}")
     flags = {a.dest: a.option_strings[0] for a in parser._actions if a.option_strings}
     for dest, item in NOT_PORTED.items():
         value = getattr(cfg, dest)

@@ -12,11 +12,13 @@
   optimizer's momentum in place.
 - ``make_lm_eval_step``: exact token-weighted sums for the held-out eval.
 - ``LMTrainer``: the step-driven loop with meters, periodic display,
-  interval and final eval, and the best perplexity.
+  interval and final eval, the best perplexity, and checkpoints in the JAX
+  package's format (``train/checkpoint.py``): every ``save_steps`` and at the
+  end of ``fit`` into ``checkpoint_dir``, and ``resume`` to the exact step.
 
 Not ported yet (ROADMAP.md queue A): meshes and every parallel layout, the
-fused CE head, checkpoints, the observability and fault-tolerance layers,
-elastic membership and the background feeder thread.
+fused CE head, the observability and fault-tolerance layers, elastic
+membership and the background feeder thread.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.ops.loss import cross_entropy
+from pytorch_distributed_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from pytorch_distributed_tpu_torch.train.meters import StepMeters
 from pytorch_distributed_tpu_torch.train.optim import sgd
 
@@ -231,13 +234,20 @@ class LMTrainer:
     ``warmup_cosine_lr``) overriding the fixed ``lr``.  ``step_times`` and
     ``losses`` collect every step's host seconds as the meters measure
     them and its loss (a device scalar).
+
+    ``checkpoint_dir``: checkpoint every ``save_steps`` steps (0: only at the
+    end of ``fit``) there.  ``resume``: a checkpoint file to restore the
+    weights, the momentum and the step from; ``fit`` continues at
+    ``max(global_step, step)`` of its ``ft`` record, on the same tokens and
+    learning rates as an uninterrupted run (the batching is step-indexed).
     """
 
     def __init__(self, model, dataset, batch_size: int, lr: float = 1e-2,
                  eval_dataset=None, eval_every: int = 0, eval_batches: int = 8,
                  lr_schedule=None, clip_grad_norm: float = 0.0,
                  accum_steps: int = 1, momentum: float = 0.9,
-                 weight_decay: float = 1e-4):
+                 weight_decay: float = 1e-4, checkpoint_dir: Optional[str] = None,
+                 save_steps: int = 0, resume: Optional[str] = None):
         self.model = model
         self.dataset = dataset
         self.batch_size = batch_size
@@ -255,6 +265,24 @@ class LMTrainer:
         self.eval_history: list = []  # (loss, ppl, acc%) per evaluate() call
         self.step_times: list = []
         self.losses: list = []
+        self.checkpoint_dir = checkpoint_dir
+        self.save_steps = save_steps
+        self._start_step = 0
+        if resume:
+            _, meta = load_checkpoint(resume, model, self.optimizer)
+            ft = meta["ft"]
+            self._start_step = max(int(ft["global_step"]), int(ft["step"]))
+            if self._eval_fn is not None and float(meta["best_acc1"]) > 0:
+                self.best_ppl = float(meta["best_acc1"])
+            print(f"=> resumed {meta['arch']} from '{resume}' at step {self._start_step}",
+                  flush=True)
+
+    def _save_checkpoint(self, completed: int, is_best: bool = False) -> None:
+        """The best perplexity rides in the ``best_acc1`` slot; the LM is
+        epochless, so step == global step restores the exact token stream."""
+        save_checkpoint(self.checkpoint_dir, self.model, self.optimizer, completed, 0,
+                        "transformer_lm", self.best_ppl if self._eval_fn is not None else 0.0,
+                        is_best=is_best, ft={"step": completed, "global_step": completed})
 
     def _tokens(self, ds, step: int) -> torch.Tensor:
         return torch.from_numpy(ds.batch(step, self.batch_size)).to(self.model.device)
@@ -278,21 +306,27 @@ class LMTrainer:
         return loss, ppl, acc
 
     def fit(self, steps: int, print_freq: int = 10) -> float:
-        """Train ``steps`` steps; returns the last step's loss."""
+        """Train up to step ``steps`` (from the resumed step, else 0);
+        returns the last step's loss."""
         meters = StepMeters(
             steps,
             [("loss", "Loss", ":.4e"), ("acc", "Acc@1", ":6.2f")],
             prefix="Step: ",
         )
         final_ppl = None  # ppl from an interval eval on the very last step
+        completed = start = min(self._start_step, steps)
         meters.restart_clock()
-        for i in range(steps):
+        for i in range(start, steps):
             tokens = self._tokens(self.dataset, i)
             lr = self.lr_schedule(i) if self.lr_schedule is not None else self.lr
             metrics = self.step_fn(tokens, lr)
             self.step_times.append(meters.update(metrics, self.batch_size))
             self.losses.append(metrics["loss"])
             meters.maybe_display(i, print_freq)
+            completed = i + 1
+            if self.checkpoint_dir and self.save_steps > 0 and completed % self.save_steps == 0:
+                self._save_checkpoint(completed)
+                meters.restart_clock()  # exclude checkpoint I/O from the meter
             if (self._eval_fn is not None and self.eval_every > 0
                     and (i + 1) % self.eval_every == 0):
                 _, final_ppl, _ = self.evaluate()
@@ -300,8 +334,14 @@ class LMTrainer:
                 meters.restart_clock()  # eval must not pollute the meter
             else:
                 final_ppl = None
+        is_best = False
         if self._eval_fn is not None:
             if final_ppl is None:  # the last step did not land on an eval
                 _, final_ppl, _ = self.evaluate()
+            # <= so the final state is marked best when it ties the best
+            # seen (an interval eval on the last step set best_ppl).
+            is_best = final_ppl <= self.best_ppl
             self.best_ppl = min(self.best_ppl, final_ppl)
+        if self.checkpoint_dir:
+            self._save_checkpoint(completed, is_best=is_best)
         return meters["loss"].val

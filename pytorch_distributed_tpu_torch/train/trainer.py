@@ -2,18 +2,23 @@
 ``pytorch_distributed_tpu/train/trainer.py`` reduced to its single-device
 synthetic path: data, model, SGD, ``train_epoch`` with the LR schedule and
 the progress meters, ``validate`` with exact padded sums, ``fit`` with the
-best top-1 and the epoch CSV.
+best top-1 and the epoch CSV, and checkpoints (``train/checkpoint.py``, the
+JAX package's format): ``--pretrained``, ``--resume`` to the exact step,
+``--save-steps`` inside an epoch and a save at each epoch's end, with
+``model_best`` on a new best top-1.
 
 Not ported yet, each exiting from ``train/config.py`` with its ROADMAP item:
-ImageFolder data (A17), multi-process data parallelism (A18), checkpoints,
-resume and ``--pretrained`` (A16), the divergence rollback policy, elastic
-membership and the preemption guard (A11), and the observability layer
-(A12).  ``--nan-guard`` is ported as the in-step gate.
+ImageFolder data (A17), multi-process data parallelism (A18), the divergence
+rollback policy, elastic membership and the preemption guard (A11), and the
+observability layer (A12).  ``--nan-guard`` is ported as the in-step gate.
 """
 
 from __future__ import annotations
 
+import os
 import time
+import warnings
+from typing import Optional
 
 import torch
 
@@ -24,6 +29,7 @@ from pytorch_distributed_tpu_torch.data import (
     DistributedShardSampler,
     SyntheticImageDataset,
 )
+from pytorch_distributed_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from pytorch_distributed_tpu_torch.train.config import Config
 from pytorch_distributed_tpu_torch.train.lr import cosine_lr, step_decay_lr
 from pytorch_distributed_tpu_torch.train.meters import AverageMeter, ProgressMeter, StepMeters
@@ -37,7 +43,8 @@ class Trainer:
     """Image training on one device.  ``step_times`` and ``losses`` collect
     every train step's host seconds (as the meter measures them) and its
     loss (a device scalar); ``eval_history`` holds ``(loss, acc1, acc5)`` per
-    ``validate``."""
+    ``validate``; ``global_step`` counts the train steps taken, restored by
+    ``--resume``."""
 
     def __init__(self, cfg: Config):
         self.cfg = cfg
@@ -59,10 +66,63 @@ class Trainer:
         self.eval_step = make_eval_step(self.model)
         self.feeder = DeviceFeeder(self.device)
         self.csv = EpochCSVLogger(cfg.epoch_csv)
-        self.best_acc1 = 0.0
         self.step_times: list = []
         self.losses: list = []
         self.eval_history: list = []
+        if cfg.pretrained:
+            self._load_pretrained()
+        self.best_acc1 = 0.0
+        self._resume_step = 0    # step-in-epoch offset for the first epoch
+        self.global_step = 0
+        if cfg.resume:
+            self._resume(cfg.resume)
+
+    def _resume(self, path: str) -> None:
+        """Restore weights, momentum, BN statistics and the ``ft`` record; a
+        mid-epoch file reruns the same epoch from its step, an epoch-boundary
+        file starts the next epoch."""
+        cfg = self.cfg
+        _, meta = load_checkpoint(path, self.model, self.optimizer)
+        self.best_acc1 = float(meta["best_acc1"])
+        ft = meta["ft"]
+        self._resume_step = int(ft["step"])
+        self.global_step = int(ft["global_step"])
+        if self._resume_step > 0 and int(ft["sampler_seed"]) != self.seed:
+            warnings.warn(
+                f"resuming mid-epoch with --seed {self.seed} but the checkpoint's sampler "
+                f"ran with seed {int(ft['sampler_seed'])}: the shuffle permutation differs, "
+                "so the resumed epoch will not be sample-exact", stacklevel=2)
+        if cfg.start_epoch == 0:
+            cfg.start_epoch = int(meta["epoch"]) + (0 if self._resume_step > 0 else 1)
+        print(f"=> resumed {meta['arch']} from '{path}' (epoch {meta['epoch']}, step "
+              f"{self._resume_step}, best_acc1 {self.best_acc1:.3f})")
+
+    def _load_pretrained(self) -> None:
+        """``--pretrained``: weights from a local directory,
+        ``$PTD_TPU_PRETRAINED_DIR/<arch>.msgpack`` (default ``pretrained/``),
+        any checkpoint either package saved for the same arch."""
+        d = os.environ.get("PTD_TPU_PRETRAINED_DIR", "pretrained")
+        path = os.path.join(d, f"{self.cfg.arch}.msgpack")
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"--pretrained: no weights at '{path}'; set PTD_TPU_PRETRAINED_DIR to a "
+                f"directory containing {self.cfg.arch}.msgpack (a checkpoint saved by this "
+                "framework)")
+        load_checkpoint(path, self.model, self.optimizer)
+        print(f"=> using pre-trained model '{self.cfg.arch}' from '{path}'")
+
+    def _ft_record(self, epoch: int, step_in_epoch: int) -> dict:
+        return {"step": int(step_in_epoch), "global_step": int(self.global_step),
+                "sampler_seed": int(self.train_sampler.seed), "sampler_epoch": int(epoch),
+                "lr_scale": 1.0}
+
+    def save(self, epoch: int, step_in_epoch: int = 0, is_best: bool = False) -> str:
+        """Checkpoint to ``--checkpoint-dir``: at an epoch's end
+        (``step_in_epoch`` 0) or after ``step_in_epoch`` steps of ``epoch``."""
+        cfg = self.cfg
+        return save_checkpoint(cfg.checkpoint_dir, self.model, self.optimizer, self.global_step,
+                               epoch, cfg.arch, self.best_acc1, is_best,
+                               ft=self._ft_record(epoch, step_in_epoch))
 
     def _build_data(self) -> None:
         cfg = self.cfg
@@ -93,23 +153,36 @@ class Trainer:
         raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}: expected 'step' or "
                          "'cosine'")
 
-    def train_epoch(self, epoch: int) -> int:
-        """One epoch; returns the number of steps taken."""
+    def train_epoch(self, epoch: int, start_step: int = 0,
+                    stop_after: Optional[int] = None) -> int:
+        """Steps ``start_step`` .. the end of ``epoch`` (or until
+        ``stop_after`` steps of it are complete), checkpointing every
+        ``--save-steps``; returns the number of steps of the epoch complete."""
         lr = self.epoch_lr(epoch)
         meters = StepMeters(len(self.train_loader),
                             [("loss", "Loss", ":.4e"), ("acc1", "Acc@1", ":6.2f"),
                              ("acc5", "Acc@5", ":6.2f")], prefix=f"Epoch: [{epoch}]")
         self.train_loader.set_epoch(epoch)
         self.val_sampler.set_epoch(epoch)
+        epoch_len, save_steps = len(self.train_loader), self.cfg.save_steps
+        completed = start_step
+        if stop_after is not None and stop_after <= start_step:
+            return completed
         meters.restart_clock()
-        steps = 0
-        for i, batch in enumerate(self.feeder(iter(self.train_loader))):
+        batches = self.feeder(self.train_loader.iter_batches(start_step))
+        for i, batch in enumerate(batches, start_step):
             metrics = self.train_step(batch, lr)
             self.step_times.append(meters.update(metrics, self.cfg.batch_size))
             self.losses.append(metrics["loss"])
             meters.maybe_display(i, self.cfg.print_freq)
-            steps += 1
-        return steps
+            self.global_step += 1
+            completed = i + 1
+            if save_steps > 0 and completed % save_steps == 0 and completed < epoch_len:
+                self.save(epoch, completed)
+                meters.restart_clock()  # exclude checkpoint I/O from the meter
+            if completed == stop_after:
+                break
+        return completed
 
     @torch.no_grad()
     def validate(self) -> float:
@@ -144,16 +217,18 @@ class Trainer:
         return acc1
 
     def fit(self) -> float:
-        """Train ``--start-epoch`` .. ``--epochs``, validating after each
-        epoch; returns the best top-1 (or only validates under
-        ``--evaluate``)."""
+        """Train ``--start-epoch`` .. ``--epochs`` (the first from the resumed
+        step), validating and checkpointing after each epoch; returns the
+        best top-1 (or only validates under ``--evaluate``)."""
         cfg = self.cfg
         if cfg.evaluate:
             return self.validate()
         for epoch in range(cfg.start_epoch, cfg.epochs):
             self.csv.epoch_start()
-            self.train_epoch(epoch)
+            self.train_epoch(epoch, self._resume_step if epoch == cfg.start_epoch else 0)
             acc1 = self.validate()
             print(f"Epoch {epoch} took {self.csv.epoch_end():.1f}s", flush=True)
+            is_best = acc1 > self.best_acc1
             self.best_acc1 = max(acc1, self.best_acc1)
+            self.save(epoch, is_best=is_best)
         return self.best_acc1

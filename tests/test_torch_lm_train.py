@@ -44,6 +44,16 @@ CFG = dict(vocab_size=64, d_model=64, n_heads=4, n_layers=2)
 LRS = (0.05, 0.04, 0.03)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny ops only: under the parallel suite, intra-op threads contend for
+    the cores, so this module runs torch on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def mesh():
     return build_mesh(MeshSpec(("data",), (8,)), jax.devices()[:8])
@@ -233,7 +243,7 @@ def test_recipe_trains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--fused-ce", "4"], ["--remat"],
-                                  ["--checkpoint-dir", "ckpt"], ["--nan-guard"],
+                                  ["--nan-guard"],
                                   ["--metrics-jsonl", "m.jsonl"], ["--zero", "wus"]])
 def test_unported_flags_exit_nonzero(flag):
     with pytest.raises(SystemExit) as exc:
