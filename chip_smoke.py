@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving, LM training and image training paths, and
-their checkpoints, on one NVIDIA H100 and check them.
+"""Run the PyTorch port's serving, LM training and image training paths,
+their checkpoints and image training from an ImageFolder tree on disk, on
+one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -93,7 +94,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     epoch under the same rule;
 14. run the ``bench.py`` twin (``tools/bench.py``: ResNet-50 b256 bf16
     synthetic step, unfused then fused) and print its JSON line tagged
-    ``[bench]``; a non-finite loss or a failed variant fails the run.
+    ``[bench]``; a non-finite loss or a failed variant fails the run;
+15. image data from disk: decode each committed fixture
+    (``tests/data/images``) twice (same pixels required) and time decode and
+    PIL's bilinear resize per image; link the fixtures into an ImageFolder
+    tree of 1000 classes, 1280 train and 204 val images (deleted after; only
+    the PNG twins where the C++ plane has no libjpeg); drive
+    ``recipes.tpu_native --data`` with ``-a resnet50 --fused-convbn -b 256
+    --image-size 224``, bf16, once per ``--wire`` (f32, u8host, u8 with
+    ``--worker-type process``, and native where libjpeg is present): 5
+    train steps and one eval batch each, K4 33 and K5 13 times per step,
+    neither in eval, finite losses; prints per mode the loader's host
+    images/s alone, the median step, ``DeviceFeeder`` wait per batch and the
+    bytes copied per batch.  The first eval batch of u8host and u8, as it
+    lands on the card, must equal f32's to 1e-5; u8's first train batch
+    must follow the JAX flip stream and equal u8host's to 1e-5, and each
+    f32 train image the same crop (or its mirror: f32 flips per sample);
+    native's eval batch must stay within the JAX test's bound of the
+    PIL-exact one (mean |difference| < 4 of 255) with exactly its CMYK and
+    PNG-named-JPEG slots masked.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
@@ -114,6 +133,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -588,6 +608,199 @@ def bench_phase(card):
     if not rec["value"] > 0:
         raise SystemExit(f"tools.bench measured {rec['value']}")
     torch.cuda.empty_cache()
+
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "images")
+
+
+def _link_tree(root, sources, n_train, n_val, classes):
+    """An ImageFolder tree under ``root``: ``classes`` class directories in
+    train/ and val/, image i of a split in class i % classes, linked to
+    ``sources[i % len(sources)]`` (hard links where the filesystem allows,
+    else symbolic ones)."""
+    for split, n in (("train", n_train), ("val", n_val)):
+        for c in range(classes):
+            os.makedirs(os.path.join(root, split, f"n{c:08d}"))
+        for i in range(n):
+            src = sources[i % len(sources)]
+            dst = os.path.join(root, split, f"n{i % classes:08d}",
+                               f"{i:05d}_{os.path.basename(src)}")
+            try:
+                os.link(src, dst)
+            except OSError:
+                os.symlink(src, dst)
+
+
+def _fed(trainer, host):
+    """``host`` through the trainer's own feeder: the batch as it lands."""
+    (batch,) = list(trainer.feeder(iter([host])))
+    return batch
+
+
+def data_phase(dev, card, arch="resnet50", batch=256, image_size=224, classes=1000,
+               n_train=1280, n_val=204, per_step=(33, 13)):
+    """Phase 15: ``tpu_native --data`` on an ImageFolder tree linked from the
+    committed fixtures, once per ``--wire``.  Returns the (K4, K5) launches
+    of its train steps."""
+    from pytorch_distributed_tpu_torch.data import imageio, native
+    from pytorch_distributed_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+
+    nproc = os.cpu_count()
+    jpeg = native.jpeg_native_available()
+    files = sorted(os.path.join(FIXTURES, f) for f in os.listdir(FIXTURES)
+                   if f.endswith((".JPEG", ".png")))
+    sources = files if jpeg else [f for f in files if f.endswith(".png")]
+    print(f"[data] libjpeg: {'present' if jpeg else 'absent'}; "
+          + ("" if jpeg else "--wire native did not run; the f32, u8host and u8 runs use "
+             "the PNG twins; ") + f"{len(sources)} source files; nproc {nproc}; card {card}")
+    # Decoding is deterministic, and its cost per file on this host.
+    for f in files if jpeg else sources:
+        first = imageio.read_image(f)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            again = imageio.read_image(f)
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not (first.dtype == again.dtype and (first == again).all()):
+            raise SystemExit(f"decoding {f} twice gave different pixels")
+        print(f"[data] decode {os.path.basename(f)} {first.shape[1]}x{first.shape[0]}: median "
+              f"{statistics.median(times)} ms of 5, same pixels twice")
+    img = imageio.read_image(next(f for f in sources if "rgb0" in f))
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        native.resize_bilinear(img, (image_size, image_size))
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"[data] resize {img.shape[1]}x{img.shape[0]} -> {image_size}x{image_size} (PIL's "
+          f"bilinear): median {statistics.median(times)} ms of 20; nproc {nproc}; card {card}")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    ckpt_dir = os.path.join(root, "ckpt")
+    runs, launches = {}, [0, 0]
+    steps = n_train // batch
+    try:
+        t0 = time.perf_counter()
+        _link_tree(os.path.join(root, "data"), sources, n_train, n_val, classes)
+        print(f"[data] tree: {classes} classes, {n_train} train and {n_val} val images linked "
+              f"in {time.perf_counter() - t0} s")
+        modes = [("f32", "thread"), ("u8host", "thread"), ("u8", "process")]
+        if jpeg:
+            modes.append(("native", "thread"))
+        for wire, worker in modes:
+            fused_dgrad_wgrad.launches = fused_dgrad_wgrad_3x3.launches = 0
+            t0 = time.perf_counter()
+            trainer = tpu_native.run([
+                "--data", os.path.join(root, "data"), "-a", arch, "--fused-convbn", "-b",
+                str(batch), "--image-size", str(image_size), "--wire", wire, "--worker-type",
+                worker, "-j", str(nproc), "--epochs", "1", "--precision", "bf16", "--seed",
+                "0", "-p", "10", "--epoch-csv", os.path.join(root, "epochs.csv"),
+                "--checkpoint-dir", ckpt_dir, "--device", str(dev)])
+            run_s = time.perf_counter() - t0
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            got = (fused_dgrad_wgrad.launches, fused_dgrad_wgrad_3x3.launches)
+            want = (per_step[0] * steps, per_step[1] * steps)
+            losses = [float(x) for x in trainer.losses]
+            eval_loss = trainer.eval_history[0][0]
+            if got != want or len(losses) != steps:
+                raise SystemExit(f"--wire {wire}: (K4, K5) launched {got} times in "
+                                 f"{len(losses)} steps and one eval batch, expected {want}")
+            if not all(math.isfinite(x) for x in losses + [eval_loss]):
+                raise SystemExit(f"--wire {wire}: non-finite loss {losses}, eval {eval_loss}")
+            launches[0] += got[0]
+            launches[1] += got[1]
+            fused_dgrad_wgrad.launches = fused_dgrad_wgrad_3x3.launches = 0
+            trainer.validate()
+            if (fused_dgrad_wgrad.launches, fused_dgrad_wgrad_3x3.launches) != (0, 0):
+                raise SystemExit(f"--wire {wire}: eval launched K4 or K5")
+            wait_per_batch = trainer.feeder.wait_s / (steps + 2 * len(trainer.val_loader))
+            # The loader alone: one more epoch of host batches, nothing fed.
+            t0 = time.perf_counter()
+            host = list(trainer.train_loader)
+            loader_ips = len(host) * batch / (time.perf_counter() - t0)
+            nbytes = sum(v.nbytes for v in host[0].values())
+            trainer.train_loader.set_epoch(0)
+            with contextlib.closing(trainer.train_loader.iter_batches(0)) as it:
+                host_train = next(it)
+            with contextlib.closing(trainer.val_loader.iter_batches(0)) as it:
+                host_val = next(it)
+            runs[wire] = dict(
+                train=_fed(trainer, host_train)["images"], host_train=host_train,
+                val=_fed(trainer, host_val)["images"], val_weights=host_val["weights"],
+                val_names=[os.path.basename(trainer.val_set.samples[i][0])
+                           for i in range(min(batch, len(trainer.val_set)))])
+            step_ms = statistics.median(trainer.step_times[1:]) * 1e3
+            print(f"[data] --wire {wire} --worker-type {worker} -j {nproc}: host "
+                  f"{loader_ips} images/s (loader alone, {len(host)} batches of {batch}); "
+                  f"step {step_ms} ms (median of steps 2-{steps}; all "
+                  f"{[t * 1e3 for t in trainer.step_times]}); feeder wait "
+                  f"{wait_per_batch} s per batch ({trainer.feeder.wait_s} s over {steps} "
+                  f"train and {2 * len(trainer.val_loader)} eval batches); {nbytes} bytes "
+                  f"copied per batch ({host[0]['images'].dtype} images); losses {losses}; "
+                  f"eval loss {eval_loss}; run {run_s} s; launches K4/K5 {got}; "
+                  f"nproc {nproc}; card {card}")
+            trainer.train_loader.close()
+            trainer.val_loader.close()
+            del trainer, host
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # The first batches on the card.  Eval is deterministic: f32, u8host
+    # and u8 must agree to 1e-5 (normalized where each mode normalizes:
+    # per sample on the host, per batch in C++, on the card).  Train: u8host
+    # and u8 share crops and the batch flip stream; u8's uint8 batch must be
+    # the unflipped batch mirrored where the JAX stream (seed, epoch, batch,
+    # 1) says; f32 draws its flip per sample, so each f32 image must equal
+    # the unflipped u8 image or its mirror.
+    ref = runs["f32"]
+    live = torch.from_numpy(ref["val_weights"]).to(dev) > 0
+    for wire in ("u8host", "u8"):
+        # Padding slots (weight 0) differ by design: f32 pads with 0.0, the
+        # uint8 modes pad with 0 and normalize it.
+        same_mask = (runs[wire]["val_weights"] == ref["val_weights"]).all()
+        err = (runs[wire]["val"] - ref["val"])[live].abs().max().item()
+        print(f"[data] first eval batch on the card, --wire {wire} vs f32: max abs err {err} "
+              f"over its {int(live.sum())} live slots; same weights: {same_mask}")
+        if not (err <= 1e-5 and same_mask):
+            raise SystemExit(f"--wire {wire}: its first eval batch differs from f32's by {err}")
+    err = (runs["u8host"]["train"] - runs["u8"]["train"]).abs().max().item()
+    flip = np.random.default_rng((0, 0, 0, 1)).random(batch) < 0.5
+    u8 = runs["u8"]["host_train"]["images"]
+    unflipped = u8.copy()
+    unflipped[flip] = u8[flip, :, ::-1]
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+    plain = (torch.from_numpy(unflipped).to(dev).float() / 255.0 - mean) / std
+    same = (ref["train"] - plain).flatten(1).abs().amax(1)
+    mirrored = (ref["train"] - plain.flip(2)).flatten(1).abs().amax(1)
+    best = torch.minimum(same, mirrored)
+    print(f"[data] first train batch: u8host vs u8 max abs err {err}; u8's flips follow the "
+          f"(seed, epoch, batch, 1) stream ({int(flip.sum())} of {batch} mirrored); f32 vs "
+          f"the unflipped u8 crop or its mirror: max abs err {best.max().item()} "
+          f"({int((same <= mirrored).sum())} unmirrored, {int((same > mirrored).sum())} "
+          "mirrored)")
+    if not (err <= 1e-5 and best.max().item() <= 1e-5):
+        raise SystemExit("the first train batches of the wire modes disagree")
+    if "native" in runs:
+        # The JAX package's native plane crops and resizes by its own
+        # bilinear after an IFAST decode (a documented delta), so it is held
+        # to the JAX test's bound against the PIL-exact u8 eval batch: mean
+        # |difference| under 4 of 255, over the slots it decoded.
+        nat = runs["native"]
+        live = torch.from_numpy(nat["val_weights"]).to(dev) > 0
+        diff = ((nat["val"] - runs["u8"]["val"]) * std * 255.0)[live].abs()
+        dead = [n for n, w in zip(nat["val_names"], nat["val_weights"]) if w == 0]
+        expect = [n for n in nat["val_names"] if "cmyk6" in n or "png7" in n]
+        print(f"[data] --wire native first eval batch vs u8 (PIL-exact): mean abs diff "
+              f"{diff.mean().item()} of 255, max {diff.max().item()}; {len(dead)} slots "
+              "masked (libjpeg-turbo refuses CMYK to RGB; a PNG named .JPEG is no JPEG)")
+        if not (diff.mean().item() < 4.0 and dead == expect):
+            raise SystemExit("--wire native: its eval batch or its masked slots are wrong")
+    return launches
+
 
 
 def main() -> int:
@@ -1149,6 +1362,11 @@ def main() -> int:
     bench_phase(card)
     print(f"[time] phase 14 took {time.perf_counter() - t0} s")
 
+    # 15. tpu_native --data on an ImageFolder tree, once per --wire
+    t0 = time.perf_counter()
+    k4_data, k5_data = data_phase(dev, card)
+    print(f"[time] phase 15 took {time.perf_counter() - t0} s")
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
@@ -1167,9 +1385,10 @@ def main() -> int:
             launches=n, max_abs_err=bpath[key]["err"], ms=bpath[key]["ms"],
             plain_ms=bpath["plain_ms"], bound_ms=bpath[key]["bound_ms"],
             bound_by=bpath[key]["bound_by"], library_ms=bpath["library_ms"]))
-    for name, key, line, n in (("fused_dgrad_wgrad", "k4_path", 122, image_launches[0] + k4),
+    for name, key, line, n in (("fused_dgrad_wgrad", "k4_path", 122,
+                                image_launches[0] + k4 + k4_data),
                                ("fused_dgrad_wgrad_3x3", "k5_path", 210,
-                                image_launches[1] + k5)):
+                                image_launches[1] + k5 + k5_data)):
         kp = conv[key]
         kernels.append(dict(
             name=name, route="cuda",
@@ -1177,7 +1396,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-14 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-15 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@ Ported so far:
   ``train/lm.py`` → ``models/transformer.py``) with the flash-attention
   forward and backward kernels behind one autograd Function;
 - single-device ResNet training (``recipes/tpu_native.py`` →
-  ``train/trainer.py`` → ``train/steps.py`` → ``models/resnet.py``, with the
-  synthetic ``data/`` pipeline); under ``--fused-convbn`` the stride-1
-  conv → BatchNorm backward runs through the fused kernels K4 (1x1) and K5
-  (3x3) of ``ops/fused_conv_bn.py``.
+  ``train/trainer.py`` → ``train/steps.py`` → ``models/resnet.py``) on
+  synthetic data or an ImageFolder tree (``data/``: decoding without PIL,
+  the transforms, the uint8 wire modes, the C++ data plane and worker
+  processes); under ``--fused-convbn`` the stride-1 conv → BatchNorm
+  backward runs through the fused kernels K4 (1x1) and K5 (3x3) of
+  ``ops/fused_conv_bn.py``.
 """

@@ -6,6 +6,12 @@ batches prefetched to the card, the epoch CSV (default ``tpu_native.csv``).
         --synthetic --fused-convbn -b 256 --epochs 1
     python -m pytorch_distributed_tpu_torch.recipes.tpu_native --device cpu \\
         -a resnet18 --synthetic --image-size 32 -b 8 --synthetic-length 32 --epochs 1
+    python -m pytorch_distributed_tpu_torch.recipes.tpu_native --data DIR -a resnet50 \\
+        --fused-convbn -b 256 --wire u8 --worker-type process
+
+``--data DIR`` trains on an ImageFolder tree (``DIR/train``, ``DIR/val``)
+through ``--wire f32|u8host|u8|native`` (``native`` needs the C++ data
+plane built against libjpeg).
 
 ``--fused-convbn`` runs the stride-1 conv -> BN backward through the
 hand-written kernels K4 (1x1) and K5 (3x3).

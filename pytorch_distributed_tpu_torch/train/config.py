@@ -6,8 +6,8 @@ plus ``--device`` (default ``cuda``).
 
 Every flag is parsed.  ``check_ported`` exits naming the ROADMAP item that
 will port a flag whose value differs from its default and whose layer is
-not ported yet: the ImageFolder data path (A17), distribution (A18), SyncBN
-(A19), the gradient-communication stack (A9), the fused CE head (A14), fault
+not ported yet: distribution (A18), SyncBN (A19), the
+gradient-communication stack (A9), the fused CE head (A14), fault
 tolerance beyond the in-step ``--nan-guard`` gate and the checkpoints
 (A11) and observability beyond the epoch CSV (A12).  ``--ckpt-backend
 orbax`` exits too: orbax imports JAX, so the port keeps the msgpack format.
@@ -23,7 +23,6 @@ from pytorch_distributed_tpu_torch import models
 from pytorch_distributed_tpu_torch.ops.fused_bn import SYNC_BN_ITEM as _SYNC_BN
 from pytorch_distributed_tpu_torch.train.checkpoint import ORBAX_MESSAGE
 
-_DATA = "A17 (ImageFolder, transforms, the uint8 wire modes, worker processes)"
 _DIST = "A18 (multi-process data parallelism: DDP over NCCL and the six other image recipes)"
 _GRAD_COMM = "A9 (gradient-communication stack: --zero, --grad-compress, --overlap)"
 _FUSED_CE = "A14 (fused tied-head cross-entropy, --fused-ce)"
@@ -32,7 +31,6 @@ _OBS = "A12 (observability: metrics, heartbeats, profiles, ledgers, alerts)"
 
 # dest -> the ROADMAP item that will port it, for flags not ported yet.
 NOT_PORTED = {
-    "wire": _DATA, "worker_type": _DATA,
     "dist_file": _DIST,
     "sync_bn": _SYNC_BN,
     **dict.fromkeys(("grad_compress", "zero", "overlap", "bucket_mb"), _GRAD_COMM),
@@ -130,14 +128,14 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
     p = argparse.ArgumentParser(description=description)
     add = p.add_argument
     add("--data", metavar="DIR", default=d.data,
-        help="path to dataset (only --synthetic is ported)")
+        help="path to dataset: an ImageFolder tree with train/ and val/")
     add("-a", "--arch", metavar="ARCH", default=d.arch, choices=names,
         help="model architecture: " + " | ".join(names) + f" (default: {d.arch}; "
         "the ResNet family is ported)")
     add("-j", "--workers", default=d.workers, type=int, metavar="N",
-        help="number of data loading threads (default: 4)")
+        help="number of data loading workers (default: 4)")
     add("--worker-type", default=d.worker_type, choices=("thread", "process"),
-        dest="worker_type", help="thread; process is " + _NOT_PORTED_HELP)
+        dest="worker_type", help="data workers: threads, or spawned processes")
     add("--epochs", default=d.epochs, type=int, metavar="N", help="number of total epochs")
     add("--start-epoch", default=d.start_epoch, type=int, metavar="N",
         help="manual epoch number (useful on restarts)")
@@ -168,13 +166,15 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
         help="samples per synthetic epoch")
     add("--image-size", default=d.image_size, type=int, help="train crop size (default 224)")
     add("--num-classes", default=d.num_classes, type=int,
-        help="number of classes (synthetic mode)")
+        help="number of classes (synthetic mode; an ImageFolder tree sets it)")
     add("--accum-steps", default=d.accum_steps, type=int,
         help="split each batch into N strided microbatches, accumulate gradients, "
         "apply one update")
     add("--local_rank", default=-1, type=int, help="accepted for launch-line parity")
     add("--wire", default=d.wire, choices=("f32", "u8host", "u8", "native"),
-        help="input pipeline format: f32; the others are " + _NOT_PORTED_HELP)
+        help="input pipeline: f32 per-sample normalize; u8host uint8 samples, flip and "
+        "normalize per batch in C++; u8 uint8 to the card, normalized there; native C++ "
+        "JPEG decode + crop per batch, uint8 to the card (--synthetic runs f32)")
     add("--grad-compress", default=d.grad_compress, choices=("none", "bf16", "int8", "fp8"),
         dest="grad_compress", help=_NOT_PORTED_HELP)
     add("--zero", default=d.zero, choices=("none", "wus"), help=_NOT_PORTED_HELP)
@@ -244,9 +244,6 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
 def check_ported(cfg: Config, parser: argparse.ArgumentParser) -> None:
     """Exit naming the ROADMAP item of the first flag set to a layer that is
     not ported yet."""
-    if not cfg.synthetic:
-        raise SystemExit("--data (the ImageFolder path) is not ported to the PyTorch "
-                         f"package yet: pass --synthetic; ROADMAP.md item {_DATA}")
     if cfg.ckpt_backend == "orbax":
         raise SystemExit(f"--ckpt-backend orbax: {ORBAX_MESSAGE}")
     flags = {a.dest: a.option_strings[0] for a in parser._actions if a.option_strings}

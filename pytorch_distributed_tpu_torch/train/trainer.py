@@ -1,16 +1,17 @@
 """Epoch loop of the image recipes, the port of
-``pytorch_distributed_tpu/train/trainer.py`` reduced to its single-device
-synthetic path: data, model, SGD, ``train_epoch`` with the LR schedule and
-the progress meters, ``validate`` with exact padded sums, ``fit`` with the
-best top-1 and the epoch CSV, and checkpoints (``train/checkpoint.py``, the
+``pytorch_distributed_tpu/train/trainer.py`` reduced to one device: data
+(synthetic, or an ImageFolder tree through the ``--wire`` pipelines), model,
+SGD, ``train_epoch`` with the LR schedule and the progress meters,
+``validate`` with exact padded sums, ``fit`` with the best top-1 and the
+epoch CSV, and checkpoints (``train/checkpoint.py``, the
 JAX package's format): ``--pretrained``, ``--resume`` to the exact step,
 ``--save-steps`` inside an epoch and a save at each epoch's end, with
 ``model_best`` on a new best top-1.
 
 Not ported yet, each exiting from ``train/config.py`` with its ROADMAP item:
-ImageFolder data (A17), multi-process data parallelism (A18), the divergence
-rollback policy, elastic membership and the preemption guard (A11), and the
-observability layer (A12).  ``--nan-guard`` is ported as the in-step gate.
+multi-process data parallelism (A18), the divergence rollback policy,
+elastic membership and the preemption guard (A11), and the observability
+layer (A12).  ``--nan-guard`` is ported as the in-step gate.
 """
 
 from __future__ import annotations
@@ -27,7 +28,15 @@ from pytorch_distributed_tpu_torch.data import (
     DataLoader,
     DeviceFeeder,
     DistributedShardSampler,
+    ImageFolder,
     SyntheticImageDataset,
+)
+from pytorch_distributed_tpu_torch.data.native import jpeg_native_available
+from pytorch_distributed_tpu_torch.data.transforms import (
+    eval_transform,
+    eval_transform_u8,
+    train_transform,
+    train_transform_u8,
 )
 from pytorch_distributed_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from pytorch_distributed_tpu_torch.train.config import Config
@@ -125,24 +134,55 @@ class Trainer:
                                ft=self._ft_record(epoch, step_in_epoch))
 
     def _build_data(self) -> None:
+        """Datasets, samplers and loaders, as the JAX trainer builds them:
+        synthetic data (f32), or the ImageFolder tree ``--data`` with
+        ``train/`` and ``val/`` (``num_classes`` from the tree) through the
+        ``--wire`` pipeline and ``--worker-type`` workers."""
         cfg = self.cfg
-        self.train_set = SyntheticImageDataset(length=cfg.synthetic_length,
-                                               num_classes=cfg.num_classes,
-                                               image_size=cfg.image_size, seed=self.seed)
-        self.val_set = SyntheticImageDataset(length=max(cfg.synthetic_length // 10, 2),
-                                             num_classes=cfg.num_classes,
-                                             image_size=cfg.image_size, seed=self.seed + 1)
+        if cfg.synthetic:
+            self.train_set = SyntheticImageDataset(length=cfg.synthetic_length,
+                                                   num_classes=cfg.num_classes,
+                                                   image_size=cfg.image_size, seed=self.seed)
+            self.val_set = SyntheticImageDataset(length=max(cfg.synthetic_length // 10, 2),
+                                                 num_classes=cfg.num_classes,
+                                                 image_size=cfg.image_size, seed=self.seed + 1)
+        elif cfg.wire == "native":
+            # C++ JPEG decode + crop/resize per batch, the flip on the host,
+            # uint8 to the card, normalized there.
+            if not jpeg_native_available():
+                raise RuntimeError(
+                    "--wire native needs the C++ data plane built against libjpeg (g++ and "
+                    "libjpeg-dev); use --wire u8 or u8host on this host")
+            self.train_set = ImageFolder(f"{cfg.data}/train", native_decode=True,
+                                         image_size=cfg.image_size, native_augment=True)
+            self.val_set = ImageFolder(f"{cfg.data}/val", native_decode=True,
+                                       image_size=cfg.image_size, native_augment=False)
+            cfg.num_classes = len(self.train_set.classes)
+        else:
+            if cfg.wire == "f32":
+                ttf, vtf = train_transform(cfg.image_size), eval_transform(cfg.image_size)
+            else:
+                ttf = train_transform_u8(cfg.image_size)
+                vtf = eval_transform_u8(cfg.image_size)
+            self.train_set = ImageFolder(f"{cfg.data}/train", transform=ttf)
+            self.val_set = ImageFolder(f"{cfg.data}/val", transform=vtf)
+            cfg.num_classes = len(self.train_set.classes)
         self.train_sampler = DistributedShardSampler(len(self.train_set), 1, 0, shuffle=True,
                                                      seed=self.seed)
         self.val_sampler = DistributedShardSampler(len(self.val_set), 1, 0, shuffle=False,
                                                    seed=self.seed)
         # drop_last on train: a zero-padded partial batch would pollute that
         # batch's BatchNorm statistics; eval pads and masks, so it is exact.
+        # Synthetic datasets emit f32; the wire modes apply to ImageFolder.
+        batch_mode = "f32" if cfg.synthetic else {
+            "f32": "f32", "u8host": "u8_host", "u8": "u8_wire", "native": "u8_wire"}[cfg.wire]
+        common = dict(num_workers=cfg.workers, seed=self.seed, batch_mode=batch_mode,
+                      worker_type=cfg.worker_type)
         self.train_loader = DataLoader(self.train_set, cfg.batch_size,
-                                       sampler=self.train_sampler, num_workers=cfg.workers,
-                                       drop_last=True)
+                                       sampler=self.train_sampler, drop_last=True,
+                                       random_flip=batch_mode != "f32", **common)
         self.val_loader = DataLoader(self.val_set, cfg.batch_size, sampler=self.val_sampler,
-                                     num_workers=cfg.workers)
+                                     **common)
 
     def epoch_lr(self, epoch: int) -> float:
         cfg = self.cfg

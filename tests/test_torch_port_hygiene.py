@@ -20,7 +20,7 @@ from pytorch_distributed_tpu_torch.utils.convert import lm_state_dict_from_jax
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "pytorch_distributed_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "pytorch_distributed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "pytorch_distributed_tpu")
 
 
 def _port_files():
@@ -43,7 +43,7 @@ def test_port_imports_no_jax(path):
 
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports in a process where importing JAX,
-    flax, msgpack or the JAX package fails."""
+    flax, msgpack, PIL or the JAX package fails."""
     code = (
         "import sys, importlib, pkgutil\n"
         f"for name in {FORBIDDEN!r}: sys.modules[name] = None\n"
