@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's serving, LM training and image training paths,
-their checkpoints and image training from an ImageFolder tree on disk, on
-one NVIDIA H100 and check them.
+their checkpoints, image training from an ImageFolder tree on disk and the
+data-parallel image recipes, on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -95,14 +95,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 14. run the ``bench.py`` twin (``tools/bench.py``: ResNet-50 b256 bf16
     synthetic step, unfused then fused) and print its JSON line tagged
     ``[bench]``; a non-finite loss or a failed variant fails the run;
-15. image data from disk: decode each committed fixture
-    (``tests/data/images``) twice (same pixels required) and time decode and
-    PIL's bilinear resize per image; link the fixtures into an ImageFolder
-    tree of 1000 classes, 1280 train and 204 val images (deleted after; only
-    the PNG twins where the C++ plane has no libjpeg); drive
+15. image data from disk: print the libjpeg and libwebp the C++ plane
+    links (none fails the run); decode each committed fixture
+    (``tests/data/images``: JPEGs, gray and CMYK included, and PNG twins)
+    twice (same pixels required) and time decode and PIL's bilinear resize
+    per image; link the fixtures into an ImageFolder tree of 1000 classes,
+    1280 train and 204 val images (deleted after); drive
     ``recipes.tpu_native --data`` with ``-a resnet50 --fused-convbn -b 256
     --image-size 224``, bf16, once per ``--wire`` (f32, u8host, u8 with
-    ``--worker-type process``, and native where libjpeg is present): 5
+    ``--worker-type process``, and native): 5
     train steps and one eval batch each, K4 33 and K5 13 times per step,
     neither in eval, finite losses; prints per mode the loader's host
     images/s alone, the median step, ``DeviceFeeder`` wait per batch and the
@@ -112,7 +113,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     f32 train image the same crop (or its mirror: f32 flips per sample);
     native's eval batch must stay within the JAX test's bound of the
     PIL-exact one (mean |difference| < 4 of 255) with exactly its CMYK and
-    PNG-named-JPEG slots masked.
+    PNG-named-JPEG slots masked;
+16. data parallelism at full width: each of ``distributed`` and
+    ``apex_distributed`` (under ``torch.distributed.run
+    --nproc_per_node=1``), ``multiprocessing_distributed`` and
+    ``dataparallel`` (plain: one worker per card), ``horovod_distributed``
+    (``PTD_TPU_*`` for one process), ``distributed_slurm_main``
+    (``SLURM_PROCID=0 SLURM_NTASKS=1``) and ``tpu_native`` (no launcher)
+    trains ResNet-50 ``--fused-convbn`` b256 224x224 synthetic for 3 steps
+    and one eval batch in a process of its own (cuDNN deterministic): NCCL
+    must be the backend (no group for ``tpu_native``), K4 run 33 and K5 13
+    times per step (counted in that process, zeroed just before the run),
+    the losses be finite; ``distributed`` (``--precision bf16``) must end
+    bitwise equal to ``tpu_native``; ``multiprocessing_distributed`` at two
+    ranks of b128 sharing the card over gloo must match one rank of b256
+    (f32, TF32 off) within ``WORLD_*`` (loss, weights and statistics, and
+    each tensor's difference relative to its change in the run), limits set
+    between the sound run's readings and those of two controls run beside
+    it, which must exceed them: per-rank BatchNorm (plain DDP) and K4/K5's
+    per-channel vectors from this rank's sums alone.  Prints the DDP step
+    against the launcher-less one on one device batch and the all-reduce
+    time of ResNet-50's gradients.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
@@ -638,7 +659,7 @@ def _fed(trainer, host):
 
 
 def data_phase(dev, card, arch="resnet50", batch=256, image_size=224, classes=1000,
-               n_train=1280, n_val=204, per_step=(33, 13)):
+               n_train=1280, n_val=204, per_step=(33, 13), require_jpeg=True):
     """Phase 15: ``tpu_native --data`` on an ImageFolder tree linked from the
     committed fixtures, once per ``--wire``.  Returns the (K4, K5) launches
     of its train steps."""
@@ -647,12 +668,15 @@ def data_phase(dev, card, arch="resnet50", batch=256, image_size=224, classes=10
 
     nproc = os.cpu_count()
     jpeg = native.jpeg_native_available()
+    libs = native.resolve_libraries()
     files = sorted(os.path.join(FIXTURES, f) for f in os.listdir(FIXTURES)
                    if f.endswith((".JPEG", ".png")))
     sources = files if jpeg else [f for f in files if f.endswith(".png")]
-    print(f"[data] libjpeg: {'present' if jpeg else 'absent'}; "
+    print(f"[data] the C++ plane links libjpeg {libs['jpeg']} and libwebp {libs['webp']}; "
           + ("" if jpeg else "--wire native did not run; the f32, u8host and u8 runs use "
              "the PNG twins; ") + f"{len(sources)} source files; nproc {nproc}; card {card}")
+    if require_jpeg and not jpeg:
+        raise SystemExit("no libjpeg.so.62 on this host: " + native.binding.searched("jpeg"))
     # Decoding is deterministic, and its cost per file on this host.
     for f in files if jpeg else sources:
         first = imageio.read_image(f)
@@ -664,7 +688,7 @@ def data_phase(dev, card, arch="resnet50", batch=256, image_size=224, classes=10
         if not (first.dtype == again.dtype and (first == again).all()):
             raise SystemExit(f"decoding {f} twice gave different pixels")
         print(f"[data] decode {os.path.basename(f)} {first.shape[1]}x{first.shape[0]}: median "
-              f"{statistics.median(times)} ms of 5, same pixels twice")
+              f"{statistics.median(times)} ms of 5, same pixels twice; card {card}")
     img = imageio.read_image(next(f for f in sources if "rgb0" in f))
     times = []
     for _ in range(20):
@@ -801,6 +825,323 @@ def data_phase(dev, card, arch="resnet50", batch=256, image_size=224, classes=10
             raise SystemExit("--wire native: its eval batch or its masked slots are wrong")
     return launches
 
+
+
+# Phase 16: the data-parallel recipes, each through its launcher contract.
+# A recipe runs in a fresh process: ``python3 chip_smoke.py --recipe-worker
+# NAME OUT [--tf32-off] [--time] [--layer-check] [--per-rank-bn]
+# [--local-k45-vectors] -- ARGS`` runs ``recipes.NAME.main(ARGS)``
+# with the launch counters zeroed just before and read just after, then
+# writes what the parent checks to OUT/result.json and the final weights
+# to OUT/state.pt.
+# World 2 against world 1 (f32, TF32 off, 3 steps): the limits lie between
+# the sound run's readings and its controls' (PERF.md, phase 16).
+WORLD_LOSS_REL = 7e-7
+WORLD_WEIGHT_ABS = 3.5e-4
+WORLD_LAYER = 1e-4
+DP_RECIPES = ("distributed", "apex_distributed", "multiprocessing_distributed",
+              "dataparallel", "horovod_distributed", "distributed_slurm_main", "tpu_native")
+
+
+def recipe_worker(argv) -> int:
+    import importlib
+
+    import torch.distributed as tdist
+
+    name, out = argv[0], argv[1]
+    flags = argv[2:argv.index("--")]
+    args = argv[argv.index("--") + 1:]
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    if "--tf32-off" in flags:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    # Controls of the world-invariance check, each a fault it must see.
+    if "--per-rank-bn" in flags:  # plain DDP: every BatchNorm over this rank's batch
+        from pytorch_distributed_tpu_torch.models import resnet
+
+        resnet.ResNet.set_bn_group = lambda self, group: self
+    if "--local-k45-vectors" in flags:  # K4/K5's t, u from this rank's sums only
+        from pytorch_distributed_tpu_torch.ops import fused_conv_bn
+
+        fused_conv_bn.global_sums = lambda dbeta, dgamma, n, group: (dbeta, dgamma, n)
+    mod = importlib.import_module(f"pytorch_distributed_tpu_torch.recipes.{name}")
+    trainers = []
+    mod.finish = lambda t: trainers.append(t) or t.best_acc1  # keep the group up
+    fused_dgrad_wgrad.launches = fused_dgrad_wgrad_3x3.launches = 0
+    t0 = time.perf_counter()
+    mod.main(args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = [fused_dgrad_wgrad.launches, fused_dgrad_wgrad_3x3.launches]
+    (trainer,) = trainers
+    ctx = trainer.ctx
+    res = {"recipe": name, "backend": ctx.backend, "world": ctx.process_count,
+           "rank": ctx.process_index, "device": str(trainer.device),
+           "launches": launches, "steps": len(trainer.losses), "run_s": run_s,
+           "losses": [float(x) for x in trainer.losses],
+           "eval": list(trainer.eval_history[0]), "precision": trainer.cfg.precision,
+           "explicit": trainer.explicit_collectives, "wire": trainer.cfg.grad_compress,
+           "step_times_ms": [t * 1e3 for t in trainer.step_times]}
+    if ctx.process_index == 0:
+        torch.save({k: v.detach().cpu() for k, v in trainer.model.state_dict().items()},
+                   os.path.join(out, "state.pt"))
+    if "--time" in flags:
+        # The train step alone on one device batch (the host's synthetic
+        # batches take longer than a step): 2 warm-up steps, median of 7.
+        dev = trainer.device
+        g = torch.Generator(device=dev).manual_seed(1)
+        b = trainer.local_batch
+        batch = {"images": torch.randn(b, 224, 224, 3, device=dev, generator=g),
+                 "labels": torch.randint(0, 1000, (b,), device=dev, generator=g),
+                 "weights": torch.ones(b, device=dev)}
+        times = []
+        for _ in range(9):
+            t0 = time.perf_counter()
+            trainer.train_step(batch, 0.1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["step_ms"] = statistics.median(times[2:])
+        res["step_ms_all"] = times
+        if ctx.group is not None:
+            # One all-reduce of ResNet-50's f32 gradients as one flat buffer.
+            n = sum(p.numel() for p in trainer.model.parameters())
+            flat = torch.ones(n, device=dev)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ms = []
+            for i in range(12):
+                ev[0].record()
+                tdist.all_reduce(flat, group=ctx.group)
+                ev[1].record()
+                torch.cuda.synchronize()
+                if i >= 2:
+                    ms.append(ev[0].elapsed_time(ev[1]))
+            res["allreduce_ms"] = statistics.median(ms)
+            res["allreduce_bytes"] = 4 * n
+    if "--layer-check" in flags:
+        res["layer_err"] = layer_check(ctx, trainer.device)
+    with open(os.path.join(out, f"result{ctx.process_index}.json"), "w") as f:
+        json.dump(res, f)
+    from pytorch_distributed_tpu_torch.parallel import shutdown
+    shutdown(ctx)
+    return 0
+
+
+def layer_check(ctx, dev, n=256) -> dict:
+    """K4's and K5's layers under ``ctx``'s group against the same layer on
+    the whole batch without one, at ResNet-50's stage-1 shapes (256->64 1x1
+    and 64->64 3x3 at 56x56, relu, seeded inputs, f32): this rank's rows of
+    da and the ranks' summed dW, dgamma and dbeta.  Returns
+    ``{kernel: largest |difference| / largest |reference|}``."""
+    import torch.distributed as tdist
+
+    from pytorch_distributed_tpu_torch.ops.fused_conv_bn import conv1x1_bn_act, conv3x3_bn_act
+
+    world, rank = ctx.process_count, ctx.process_index
+    rows = slice(rank * n // world, (rank + 1) * n // world)
+    g = torch.Generator(device=dev).manual_seed(11)
+    errs = {}
+    for name, op, ks, ci, co in (("K4", conv1x1_bn_act, 1, 256, 64),
+                                 ("K5", conv3x3_bn_act, 3, 64, 64)):
+        a = torch.randn(n, 56, 56, ci, device=dev, generator=g)
+        do = torch.randn(n, 56, 56, co, device=dev, generator=g)
+        params = (torch.randn(co, ci, ks, ks, device=dev, generator=g) / (ci * ks * ks) ** 0.5,
+                  1 + 0.1 * torch.randn(co, device=dev, generator=g),
+                  0.1 * torch.randn(co, device=dev, generator=g))
+
+        def grads(a_, do_, group):
+            leaves = [a_.clone().requires_grad_()] + [t.clone().requires_grad_() for t in params]
+            o, _, _ = op(*leaves, 1e-5, True, group)
+            o.backward(do_)
+            return [t.grad for t in leaves]
+
+        want = grads(a, do, None)
+        want[0] = want[0][rows]
+        got = grads(a[rows], do[rows], ctx.group)
+        for t in got[1:]:
+            tdist.all_reduce(t, group=ctx.group)
+        errs[name] = max(((x - y).abs().max() / y.abs().max()).item() for x, y in zip(got, want))
+        del a, do, want, got
+    return errs
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _launch(name, out, args, flags=(), env=None, torchrun=False):
+    """Start one recipe worker (``env`` added to a clean environment);
+    returns the Popen."""
+    os.makedirs(out, exist_ok=True)
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("PTD_TPU", "SLURM_", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+                                 "LOCAL_WORLD_SIZE", "MASTER_", "TORCHELASTIC", "GROUP_"))}
+    here = os.path.dirname(os.path.abspath(__file__))
+    base["PYTHONPATH"] = here + os.pathsep + base.get("PYTHONPATH", "")
+    base.update(env or {})
+    me = [os.path.join(here, "chip_smoke.py"), "--recipe-worker", name, out, *flags, "--",
+          *args]
+    cmd = ([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
+            f"--master_port={_free_port()}", *me] if torchrun else [sys.executable, *me])
+    return subprocess.Popen(cmd, env=base, cwd=out, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(procs, what, timeout=600):
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, outs):
+        if p.returncode != 0:
+            raise SystemExit(f"{what} exited {p.returncode}:\n{log[-4000:]}")
+    return outs
+
+
+def dp_args(steps=3, batch=256):
+    """Phase 16's recipe flags: ResNet-50 ``--fused-convbn``, synthetic
+    224x224, ``steps`` steps of ``batch``."""
+    return ["-a", "resnet50", "--synthetic", "--fused-convbn", "-b", str(batch),
+            "--image-size", "224", "--synthetic-length", str(steps * batch), "--epochs", "1",
+            "--seed", "0", "-p", "1", "-j", "4"]
+
+
+def dp_phase(card, steps=3, batch=256, per_step=(33, 13)):
+    """Phase 16: the six data-parallel recipes and ``tpu_native`` at world 1
+    (NCCL where a launcher names the world), bitwise ``distributed`` vs the
+    launcher-less ``tpu_native``, world 2 on the one card over gloo vs world
+    1 (f32, TF32 off), DDP's step and all-reduce times.  Returns the (K4, K5)
+    launches of the world-1 recipe runs."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    common = dp_args(steps, batch)
+    launches, results = [0, 0], {}
+    try:
+        for name in DP_RECIPES:
+            out = os.path.join(root, name)
+            args = common + ["--checkpoint-dir", os.path.join(out, "ckpt"),
+                             "--epoch-csv", os.path.join(out, "epochs.csv")]
+            if name in ("distributed", "tpu_native"):
+                args += ["--precision", "bf16"]  # the same run: the bitwise check
+            env, torchrun = {}, name in ("distributed", "apex_distributed")
+            if name in ("multiprocessing_distributed", "dataparallel"):
+                # Their own launcher, on a free port in place of 23456.
+                env = {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}"}
+            elif name == "horovod_distributed":
+                env = {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+                       "PTD_TPU_NUM_PROCESSES": "1", "PTD_TPU_PROCESS_ID": "0"}
+            elif name == "distributed_slurm_main":
+                env = {"SLURM_PROCID": "0", "SLURM_NTASKS": "1",
+                       "PTD_TPU_PORT": str(_free_port())}
+            t0 = time.perf_counter()
+            flags = ("--time",) if name in ("distributed", "tpu_native") else ()
+            (log,) = _wait([_launch(name, out, args, flags, env, torchrun)], name)
+            with open(os.path.join(out, "result0.json")) as f:
+                res = json.load(f)
+            res["wall_s"] = time.perf_counter() - t0
+            results[name] = res
+            want = [per_step[0] * steps, per_step[1] * steps]
+            backend_ok = res["backend"] == ("nccl" if name != "tpu_native" else None)
+            print(f"[dp] {name}: backend {res['backend']}, world {res['world']}, "
+                  f"{res['precision']}, explicit {res['explicit']}, wire {res['wire']}, "
+                  f"launches K4/K5 {res['launches']} over {res['steps']} steps, losses "
+                  f"{res['losses']}, eval {res['eval']}, run {res['run_s']} s, process "
+                  f"{res['wall_s']} s; card {card}")
+            if not (backend_ok and res["launches"] == want and res["steps"] == steps
+                    and all(math.isfinite(x) for x in res["losses"] + res["eval"][:1])):
+                raise SystemExit(f"{name}: backend {res['backend']}, launches "
+                                 f"{res['launches']} (expected {want}) or losses wrong:\n"
+                                 f"{log[-3000:]}")
+            launches[0] += res["launches"][0]
+            launches[1] += res["launches"][1]
+
+        # distributed (DDP over NCCL, world 1) against tpu_native (no group).
+        a = torch.load(os.path.join(root, "distributed", "state.pt"))
+        b = torch.load(os.path.join(root, "tpu_native", "state.pt"))
+        same = (results["distributed"]["losses"] == results["tpu_native"]["losses"]
+                and all(torch.equal(a[k], b[k]) for k in b))
+        worst = max((a[k].float() - b[k].float()).abs().max().item() for k in b)
+        print(f"[dp] distributed (DDP, NCCL, world 1) vs tpu_native (no group) after {steps} "
+              f"steps: bitwise {'equal' if same else 'DIFFERENT'} (max abs diff {worst}); "
+              f"card {card}")
+        if not same:
+            raise SystemExit("distributed at world 1 is not bitwise equal to tpu_native")
+        d, t = results["distributed"], results["tpu_native"]
+        print(f"[dp] train step on one device batch of {batch}, bf16, median of 7: DDP world "
+              f"1 {d['step_ms']} ms (all {d['step_ms_all']}), no group {t['step_ms']} ms (all "
+              f"{t['step_ms_all']}), overhead {d['step_ms'] - t['step_ms']} ms; all-reduce of "
+              f"ResNet-50's {d['allreduce_bytes']} gradient bytes over NCCL at world 1: "
+              f"{d['allreduce_ms']} ms (median of 10); card {card}")
+
+        world_invariance(card, root, common, steps, batch, per_step)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def world_invariance(card, root, common, steps=3, batch=256, per_step=(33, 13)):
+    """Phase 16's world-invariance check: ``multiprocessing_distributed`` at
+    2 ranks of b128 sharing the card over gloo against 1 rank of b256, f32,
+    TF32 off; then the same 2 ranks with each fault the check must see
+    (controls), each of which must fail it.  Readings: the losses' largest
+    relative difference and the weights' and statistics' largest absolute
+    difference after ``steps`` steps, and, after training, K4's and K5's
+    layers over the ranks against one rank (``layer_check``)."""
+    f32 = common + ["--precision", "fp32"]
+    out1 = os.path.join(root, "world1")
+    _wait([_launch("multiprocessing_distributed", out1,
+                   f32 + ["--checkpoint-dir", os.path.join(out1, "ckpt")], ("--tf32-off",),
+                   {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}"})], "world 1 f32")
+    with open(os.path.join(out1, "result0.json")) as f:
+        r1 = json.load(f)
+    s1 = torch.load(os.path.join(out1, "state.pt"))
+    want_launches, failed = [per_step[0] * steps, per_step[1] * steps], []
+    for tag, control in (("sound", ()), ("control: per-rank BatchNorm", ("--per-rank-bn",)),
+                         ("control: K4/K5 vectors from local sums", ("--local-k45-vectors",))):
+        out2 = os.path.join(root, "world2" + "".join(control))
+        port = _free_port()
+        t0 = time.perf_counter()
+        _wait([_launch("multiprocessing_distributed", out2,
+                       f32 + ["--checkpoint-dir", os.path.join(out2, "ckpt")],
+                       ("--tf32-off", "--layer-check", *control),
+                       {"PTD_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                        "PTD_TPU_NUM_PROCESSES": "2", "PTD_TPU_PROCESS_ID": str(r)})
+               for r in range(2)], f"world 2 f32 ({tag})")
+        w2_s = time.perf_counter() - t0
+        r2 = []
+        for r in range(2):
+            with open(os.path.join(out2, f"result{r}.json")) as f:
+                r2.append(json.load(f))
+        s2 = torch.load(os.path.join(out2, "state.pt"))
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(r2[0]["losses"], r1["losses"]))
+        worst = max((s2[k].float() - want.float()).abs().max().item() for k, want in s1.items())
+        layer = max(max(r["layer_err"].values()) for r in r2)
+        within = loss_rel <= WORLD_LOSS_REL and worst <= WORLD_WEIGHT_ABS and layer <= WORLD_LAYER
+        print(f"[dp] world invariance ({tag}), f32 TF32 off, {steps} steps: 2 ranks x "
+              f"b{batch // 2} over {r2[0]['backend']} on one card ({w2_s} s) vs 1 rank x "
+              f"b{batch} over {r1['backend']}: losses {r2[0]['losses']} vs {r1['losses']} "
+              f"(max rel {loss_rel}, limit {WORLD_LOSS_REL}); rank losses equal "
+              f"{r2[0]['losses'] == r2[1]['losses']}; weights and statistics max abs diff "
+              f"{worst} (limit {WORLD_WEIGHT_ABS}); K4/K5 layers over the 2 ranks vs 1, "
+              f"largest difference over the reference's largest: {r2[0]['layer_err']} / "
+              f"{r2[1]['layer_err']} (limit {WORLD_LAYER}); within the limits: {within}; "
+              f"card {card}")
+        if not (r2[0]["backend"] == "gloo" and r1["backend"] == "nccl"
+                and r2[0]["losses"] == r2[1]["losses"]
+                and r2[0]["launches"] == r1["launches"] == want_launches):
+            raise SystemExit(f"world 2 ({tag}): backend, rank losses or launches wrong")
+        if within != (not control):
+            failed.append("world 2 does not match world 1" if not control else
+                          f"the world-invariance check cannot see its {tag}")
+    if failed:
+        raise SystemExit("; ".join(failed))
 
 
 def main() -> int:
@@ -1367,6 +1708,11 @@ def main() -> int:
     k4_data, k5_data = data_phase(dev, card)
     print(f"[time] phase 15 took {time.perf_counter() - t0} s")
 
+    # 16. the data-parallel recipes through their launchers
+    t0 = time.perf_counter()
+    k4_dp, k5_dp = dp_phase(card)
+    print(f"[time] phase 16 took {time.perf_counter() - t0} s")
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
@@ -1386,9 +1732,9 @@ def main() -> int:
             plain_ms=bpath["plain_ms"], bound_ms=bpath[key]["bound_ms"],
             bound_by=bpath[key]["bound_by"], library_ms=bpath["library_ms"]))
     for name, key, line, n in (("fused_dgrad_wgrad", "k4_path", 122,
-                                image_launches[0] + k4 + k4_data),
+                                image_launches[0] + k4 + k4_data + k4_dp),
                                ("fused_dgrad_wgrad_3x3", "k5_path", 210,
-                                image_launches[1] + k5 + k5_data)):
+                                image_launches[1] + k5 + k5_data + k5_dp)):
         kp = conv[key]
         kernels.append(dict(
             name=name, route="cuda",
@@ -1396,7 +1742,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-15 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-16 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1406,4 +1752,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--recipe-worker"]:
+        sys.exit(recipe_worker(sys.argv[2:]))
     sys.exit(main())

@@ -2,9 +2,11 @@
 // pytorch_distributed_tpu/data/native/ptd_data.cpp (the batch normalize and
 // the batch JPEG decode + crop + resize keep its entry points, ABI and
 // semantics, bit for bit) plus what the port needs because it does not use
-// PIL: a whole-image JPEG decode that decodes as PIL does, PIL's
-// antialiased bilinear resample (Image.resize(..., BILINEAR)) and PNG's row
-// unfiltering.
+// PIL: a whole-image JPEG decode that decodes as PIL does, a WebP decode,
+// PIL's antialiased bilinear resample (Image.resize(..., BILINEAR)) and
+// PNG's row unfiltering.  libjpeg and libwebp are compiled against the
+// jpeg62 and libwebp.so.7 headers vendored under include/ and linked to
+// whichever copy of those libraries the host has (binding.py).
 //
 // The JAX package's notes on the batch functions: the reference's
 // input-pipeline native layer is CUDA streams + GPU-side normalize inside
@@ -423,6 +425,54 @@ extern "C" int ptd_decode_jpeg_rgb(const uint8_t*, int64_t, uint8_t*, int64_t,
 #endif  // PTD_NO_JPEG
 
 // ---------------------------------------------------------------------------
+// WebP (libwebp's simple decoding API, the ABI of libwebp.so.7): the header
+// fields and one still image decoded to RGBA, as the WebPAnimDecoder PIL
+// reads files through writes a single frame (MODE_RGBA, not premultiplied).
+// Animated files reach here one frame at a time: binding.py cuts the first
+// frame out of its container.
+// ---------------------------------------------------------------------------
+
+#ifndef PTD_NO_WEBP
+
+#include <webp/decode.h>
+
+extern "C" {
+
+// Width, height, has-alpha and has-animation of one WebP into info[0..3];
+// returns 0 on success, 1 if the bitstream does not parse.
+int ptd_webp_info(const uint8_t* blob, int64_t len, int32_t* info) {
+  WebPBitstreamFeatures f;
+  if (WebPGetFeatures(blob, static_cast<size_t>(len), &f) != VP8_STATUS_OK) return 1;
+  info[0] = f.width;
+  info[1] = f.height;
+  info[2] = f.has_alpha;
+  info[3] = f.has_animation;
+  return 0;
+}
+
+// Decode one still WebP into out [h, w, 4] uint8 RGBA; 0 on success, 1 on a
+// decode error.
+int ptd_decode_webp_rgba(const uint8_t* blob, int64_t len, uint8_t* out,
+                         int64_t w, int64_t h) {
+  const size_t size = static_cast<size_t>(w * h * 4);
+  return WebPDecodeRGBAInto(blob, static_cast<size_t>(len), out, size,
+                            static_cast<int>(w * 4)) == nullptr ? 1 : 0;
+}
+
+}  // extern "C"
+
+#else  // PTD_NO_WEBP: platform without libwebp; decode reports unavailable.
+
+extern "C" int ptd_webp_info(const uint8_t*, int64_t, int32_t*) { return -1; }
+
+extern "C" int ptd_decode_webp_rgba(const uint8_t*, int64_t, uint8_t*, int64_t,
+                                    int64_t) {
+  return -1;
+}
+
+#endif  // PTD_NO_WEBP
+
+// ---------------------------------------------------------------------------
 // PIL's Image.resize(size, BILINEAR), bit for bit (libImaging/Resample.c):
 // a separable, antialiased resample whose filter support grows with the
 // downscale factor; coefficients normalised in double, rounded to 22-bit
@@ -597,6 +647,74 @@ int ptd_png_unfilter(const uint8_t* in, uint8_t* out, int64_t height,
     }
   }
   return 0;
+}
+
+// GIF's variable-length LZW (the image data of one frame, its sub-blocks
+// already joined): decodes at most npix indices into out and returns how
+// many it wrote, or -1 for a code that names no table entry.  Codes grow
+// from min_code_size + 1 bits to 12; a full table stops growing until the
+// next clear code, as the GIF89a decoders do.
+int64_t ptd_gif_lzw(const uint8_t* in, int64_t len, int min_code_size,
+                    uint8_t* out, int64_t npix) {
+  if (min_code_size < 1 || min_code_size > 11) return -1;
+  const int clear = 1 << min_code_size, eoi = clear + 1;
+  std::vector<uint16_t> prefix(4096);
+  std::vector<uint8_t> suffix(4096), stack(4097);
+  for (int i = 0; i < clear; ++i) {
+    prefix[i] = 0xFFFF;
+    suffix[i] = static_cast<uint8_t>(i);
+  }
+  int size = min_code_size + 1, next = eoi + 1, prev = -1;
+  uint32_t bits = 0;
+  int nbits = 0;
+  int64_t pos = 0, n = 0;
+  while (n < npix) {
+    while (nbits < size && pos < len) {
+      bits |= static_cast<uint32_t>(in[pos++]) << nbits;
+      nbits += 8;
+    }
+    if (nbits < size) break;
+    const int code = static_cast<int>(bits & ((1u << size) - 1));
+    bits >>= size;
+    nbits -= size;
+    if (code == clear) {
+      size = min_code_size + 1;
+      next = eoi + 1;
+      prev = -1;
+      continue;
+    }
+    if (code == eoi) break;
+    int cur = code;
+    uint8_t first;
+    if (prev < 0) {
+      if (code >= clear) return -1;
+      out[n++] = static_cast<uint8_t>(code);
+      prev = code;
+      continue;
+    }
+    int sp = 0;
+    if (code >= next) {  // KwKwK: the code being defined by this very step
+      if (code > next) return -1;
+      cur = prev;
+    }
+    for (int c = cur; c != 0xFFFF; c = prefix[c]) stack[sp++] = suffix[c];
+    first = stack[sp - 1];
+    if (code >= next) {
+      // The new entry is prev + its own first byte.
+      std::memmove(&stack[1], &stack[0], static_cast<size_t>(sp));
+      stack[0] = first;
+      ++sp;
+    }
+    while (sp > 0 && n < npix) out[n++] = stack[--sp];
+    if (next < 4096) {
+      prefix[next] = static_cast<uint16_t>(prev);
+      suffix[next] = first;
+      ++next;
+      if (next == (1 << size) && size < 12) ++size;
+    }
+    prev = code;
+  }
+  return n;
 }
 
 }  // extern "C"

@@ -21,7 +21,10 @@ wide and ResNeXt variants) with the JAX model's choices:
   default), zero biases, BN scale one except the last BN of each block,
   which starts at zero.
 
-SyncBN (``bn_axis_name``) is not ported: ROADMAP.md item A19.
+``set_bn_group(group)`` threads a ``torch.distributed`` process group into
+every BatchNorm (fused or not): training-mode statistics then cover the
+global batch of its ranks, the JAX GSPMD step's BatchNorm.  The
+``--sync-bn`` flag (``bn_axis_name``) is ROADMAP.md item A19.
 """
 
 from __future__ import annotations
@@ -263,6 +266,14 @@ class ResNet(nn.Module):
                 mod.bias.zero_()
             elif isinstance(mod, FusedBatchNormAct):
                 mod.reset_parameters()
+        return self
+
+    def set_bn_group(self, group) -> "ResNet":
+        """Normalise every BatchNorm over ``group``'s global batch (None:
+        this process's batch)."""
+        for mod in self.modules():
+            if isinstance(mod, FusedBatchNormAct):
+                mod.group = group
         return self
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:

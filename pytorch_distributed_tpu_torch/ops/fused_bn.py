@@ -15,8 +15,16 @@
   training mode are not used: they write the unbiased variance.
 
 Layout: channels last, ``[..., C]``, as in the JAX package; statistics
-reduce over every other axis.  Cross-replica statistics (``axis_name``,
-SyncBN) are not ported: ROADMAP.md item A19.
+reduce over every other axis.
+
+``group`` (a ``torch.distributed`` process group) gives the statistics of
+the batch all ranks hold together, the JAX step's global-batch BatchNorm
+under GSPMD: the forward averages the one-pass moments over equal shards
+(the JAX ``axis_name`` path's ``pmean``, ``:52-54``) and the backward sums
+dbeta, dgamma and the element count over the ranks before forming dx
+(``:108-111``); the returned dgamma and dbeta stay this rank's sums, for the
+step's gradient all-reduce.  The ``--sync-bn`` flag (the JAX ``axis_name``
+under explicit collectives) is ROADMAP.md item A19.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 SYNC_BN_ITEM = "A19 (--sync-bn: cross-replica BatchNorm statistics)"
@@ -33,22 +42,45 @@ def _axes(y: torch.Tensor) -> Tuple[int, ...]:
     return tuple(range(y.dim() - 1))
 
 
-def _stats(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One-pass batch mean and variance over all but the channel axis, f32."""
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group``'s ranks (in place; ``t`` itself without a
+    group)."""
+    if group is not None:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def global_sums(dbeta: torch.Tensor, dgamma: torch.Tensor, n: int, group):
+    """``(dbeta, dgamma, n)`` of the global batch for the through-stats
+    terms of the BN backward: the per-channel sums and the element count
+    summed over ``group``'s equal shards (unchanged without a group)."""
+    if group is None:
+        return dbeta, dgamma, n
+    dbeta_g, dgamma_g = all_reduce_sum(torch.stack([dbeta, dgamma]), group)
+    return dbeta_g, dgamma_g, n * dist.get_world_size(group)
+
+
+def _stats(y: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-pass batch mean and variance over all but the channel axis, f32;
+    under ``group`` the moments are averaged over its ranks' equal shards."""
     axes = _axes(y)
     yf = y.float()
     mu = yf.mean(axes)
     ms = (yf * yf).mean(axes)
+    if group is not None:
+        moments = all_reduce_sum(torch.stack([mu, ms]), group)
+        mu, ms = moments / dist.get_world_size(group)
     # One-pass E[y^2] - mu^2 can go (numerically) negative under
     # cancellation; clamp it as the JAX package does.
     return mu, (ms - mu * mu).clamp_min(0.0)
 
 
 def bn_act_fwd(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
-               relu: bool):
+               relu: bool, group=None):
     """``(o, mu, var, inv)``: the normalised (and rectified) output in y's
-    dtype, the batch statistics and ``inv = rsqrt(var + eps)``."""
-    mu, var = _stats(y)
+    dtype, the batch statistics (over ``group``'s ranks) and ``inv =
+    rsqrt(var + eps)``."""
+    mu, var = _stats(y, group)
     inv = torch.rsqrt(var + eps)
     scale = gamma * inv
     shift = beta - mu * scale
@@ -58,9 +90,11 @@ def bn_act_fwd(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: fl
     return o, mu, var, inv
 
 
-def bn_act_bwd(y, do, mu, inv, gamma, beta, relu: bool):
+def bn_act_bwd(y, do, mu, inv, gamma, beta, relu: bool, group=None):
     """``(dx, dgamma, dbeta)`` of ``bn_act_fwd``'s output cotangent ``do``,
-    through the batch statistics, in the dtypes of y, gamma and beta."""
+    through the batch statistics, in the dtypes of y, gamma and beta; under
+    ``group`` the through-stats terms use the sums over its ranks, while
+    dgamma and dbeta come back as this rank's sums."""
     axes = _axes(y)
     n = y.numel() // y.shape[-1]
     yf = y.float()
@@ -70,7 +104,8 @@ def bn_act_bwd(y, do, mu, inv, gamma, beta, relu: bool):
         dof = torch.where(gamma * xhat + beta > 0, dof, 0.0)
     dbeta = dof.sum(axes)
     dgamma = (dof * xhat).sum(axes)
-    dx = (gamma * inv) * (dof - dbeta / n - xhat * (dgamma / n))
+    dbeta_g, dgamma_g, n_g = global_sums(dbeta, dgamma, n, group)
+    dx = (gamma * inv) * (dof - dbeta_g / n_g - xhat * (dgamma_g / n_g))
     return dx.to(y.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
 
 
@@ -80,26 +115,28 @@ class _BNAct(torch.autograd.Function):
     update takes them outside the graph)."""
 
     @staticmethod
-    def forward(ctx, y, gamma, beta, eps, relu):
-        o, mu, var, inv = bn_act_fwd(y, gamma, beta, eps, relu)
+    def forward(ctx, y, gamma, beta, eps, relu, group):
+        o, mu, var, inv = bn_act_fwd(y, gamma, beta, eps, relu, group)
         ctx.save_for_backward(y, mu, inv, gamma, beta)
-        ctx.relu = relu
+        ctx.relu, ctx.group = relu, group
         ctx.mark_non_differentiable(mu, var)
         return o, mu, var
 
     @staticmethod
     def backward(ctx, do, _dmu, _dvar):
         y, mu, inv, gamma, beta = ctx.saved_tensors
-        return (*bn_act_bwd(y, do, mu, inv, gamma, beta, ctx.relu), None, None)
+        return (*bn_act_bwd(y, do, mu, inv, gamma, beta, ctx.relu, ctx.group), None, None,
+                None)
 
 
 def bn_act(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5,
-           relu: bool = False, axis_name: Optional[str] = None):
+           relu: bool = False, axis_name: Optional[str] = None, group=None):
     """``(o, mean, var)`` of the batch-normalised ``y [..., C]`` (+ReLU), the
-    JAX ``_bn_act``.  ``axis_name`` (SyncBN) raises: not ported."""
+    JAX ``_bn_act``; ``group``: statistics over the ranks' global batch.
+    ``axis_name`` (the ``--sync-bn`` flag) raises: not ported."""
     if axis_name is not None:
         raise NotImplementedError(f"SyncBN is not ported: ROADMAP.md item {SYNC_BN_ITEM}")
-    return _BNAct.apply(y, gamma, beta, eps, relu)
+    return _BNAct.apply(y, gamma, beta, eps, relu, group)
 
 
 class FusedBatchNormAct(nn.Module):
@@ -107,7 +144,10 @@ class FusedBatchNormAct(nn.Module):
     semantics: f32 parameters and statistics, the input's dtype for storage,
     batch statistics in training mode (and the EMA ``momentum * old + (1 -
     momentum) * new``, momentum 0.9), running statistics in eval mode.
-    ``zero_init`` starts the scale at 0 (a residual block's last BN)."""
+    ``zero_init`` starts the scale at 0 (a residual block's last BN).
+    ``group``: the process group whose ranks' batches the training-mode
+    statistics cover (None: this rank's batch); set by the train step, not
+    part of the ``state_dict``."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
                  relu: bool = False, zero_init: bool = False, device=None):
@@ -116,6 +156,7 @@ class FusedBatchNormAct(nn.Module):
         self.eps = eps
         self.relu = relu
         self.zero_init = zero_init
+        self.group = None
         f32 = dict(dtype=torch.float32, device=device)
         self.weight = nn.Parameter(torch.full((features,), 0.0 if zero_init else 1.0, **f32))
         self.bias = nn.Parameter(torch.zeros(features, **f32))
@@ -147,6 +188,6 @@ class FusedBatchNormAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return self.eval_forward(x)
-        o, mu, var = bn_act(x, self.weight, self.bias, self.eps, self.relu)
+        o, mu, var = bn_act(x, self.weight, self.bias, self.eps, self.relu, group=self.group)
         self.update_stats(mu, var)
         return o

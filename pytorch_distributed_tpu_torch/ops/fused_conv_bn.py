@@ -8,7 +8,11 @@ output gradient, so the products can recompute dy from (y, dout) and four
 per-channel vectors instead of reading a dy written to device memory.
 
 - ``bn_bwd_vectors`` reduces dgamma, dbeta and the vectors s, t, u, v in
-  plain PyTorch (the JAX ``_bn_bwd_vectors``).
+  plain PyTorch (the JAX ``_bn_bwd_vectors``).  Under a process group
+  (global-batch BatchNorm, the JAX GSPMD step) dgamma, dbeta and the count
+  are summed over the ranks before t and u are formed, so the kernels see
+  the globally reduced vectors; the dgamma, dbeta and dW returned stay this
+  rank's sums, for the step's gradient all-reduce.
 - K4 ``fused_dgrad_wgrad`` (1x1) and K5 ``fused_dgrad_wgrad_3x3`` launch
   ``csrc/fused_conv_bn_bwd.cu`` on CUDA tensors, with a launch counter each
   (bf16 on the tensor cores, f32 on the CUDA cores);
@@ -35,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.ops import _build
-from pytorch_distributed_tpu_torch.ops.fused_bn import bn_act_fwd
+from pytorch_distributed_tpu_torch.ops.fused_bn import bn_act_fwd, global_sums
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Work split of the wgrad over pixel slices; the kernel source reports its
@@ -48,11 +52,13 @@ _MIN_SLICE_ROWS = 256
 _TC_WAVES = 2
 
 
-def bn_bwd_vectors(y, do, mu, inv, gamma, beta, relu: bool):
+def bn_bwd_vectors(y, do, mu, inv, gamma, beta, relu: bool, group=None):
     """``(s, t, u, v, dgamma, dbeta)``, f32 per channel, for ``y, do
     [..., C]``: ``dy = s * dof + t * y + u`` with ``t = -s * inv * dgamma /
     n``, ``u = -s * dbeta / n - t * mu``; the ReLU mask is ``s * y + v > 0``
-    with ``v = beta - s * mu``."""
+    with ``v = beta - s * mu``.  Under ``group``, t and u take dgamma, dbeta
+    and n summed over its ranks; the dgamma and dbeta returned are this
+    rank's."""
     axes = tuple(range(y.dim() - 1))
     n = y.numel() // y.shape[-1]
     yf, dof = y.float(), do.float()
@@ -62,8 +68,9 @@ def bn_bwd_vectors(y, do, mu, inv, gamma, beta, relu: bool):
         dof = torch.where(yf * s + v > 0, dof, 0.0)
     dbeta = dof.sum(axes)
     dgamma = (dof * ((yf - mu) * inv)).sum(axes)
-    t = -(s * inv) * (dgamma / n)
-    u = -s * (dbeta / n) - t * mu
+    dbeta_g, dgamma_g, n_g = global_sums(dbeta, dgamma, n, group)
+    t = -(s * inv) * (dgamma_g / n_g)
+    u = -s * (dbeta_g / n_g) - t * mu
     return s, t, u, v, dgamma, dbeta
 
 
@@ -249,12 +256,12 @@ def _make_conv_bn_op(ks: int, dgrad_wgrad):
 
     class ConvBNAct(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, a, w, gamma, beta, eps, relu):
+        def forward(ctx, a, w, gamma, beta, eps, relu, group):
             wc = w.to(a.dtype)
             y = conv2d_nhwc(a, wc, padding=ks // 2)
-            o, mu, var, inv = bn_act_fwd(y, gamma, beta, eps, relu)
+            o, mu, var, inv = bn_act_fwd(y, gamma, beta, eps, relu, group)
             ctx.save_for_backward(a, wc, y, mu, inv, gamma, beta)
-            ctx.relu = relu
+            ctx.relu, ctx.group = relu, group
             ctx.w_dtype = w.dtype
             ctx.mark_non_differentiable(mu, var)
             return o, mu, var
@@ -263,10 +270,11 @@ def _make_conv_bn_op(ks: int, dgrad_wgrad):
         def backward(ctx, do, _dmu, _dvar):
             a, wc, y, mu, inv, gamma, beta = ctx.saved_tensors
             do = do.contiguous()
-            s, t, u, v, dgamma, dbeta = bn_bwd_vectors(y, do, mu, inv, gamma, beta, ctx.relu)
+            s, t, u, v, dgamma, dbeta = bn_bwd_vectors(y, do, mu, inv, gamma, beta, ctx.relu,
+                                                       ctx.group)
             da, dw = dgrad_wgrad(y, do, a, wc, s, t, u, v, ctx.relu)
             return (da.to(a.dtype), dw.to(ctx.w_dtype), dgamma.to(gamma.dtype),
-                    dbeta.to(beta.dtype), None, None)
+                    dbeta.to(beta.dtype), None, None, None)
 
     ConvBNAct.__name__ = ConvBNAct.__qualname__ = f"ConvBNAct{ks}x{ks}"
     return ConvBNAct
@@ -276,20 +284,21 @@ _Conv1x1BNAct = _make_conv_bn_op(1, fused_dgrad_wgrad)
 _Conv3x3BNAct = _make_conv_bn_op(3, fused_dgrad_wgrad_3x3)
 
 
-def conv1x1_bn_act(a, w, gamma, beta, eps: float = 1e-5, relu: bool = False):
+def conv1x1_bn_act(a, w, gamma, beta, eps: float = 1e-5, relu: bool = False, group=None):
     """``(o, mu, var) = BN+ReLU(conv1x1(a, w))`` with the fused backward (K4).
 
     ``a``: NHWC activations; ``w``: [Co, Ci, 1, 1] f32, cast to ``a.dtype``
     for compute (its gradient comes back f32 from the kernel).  mu and var
     carry no gradient; the caller updates the running statistics with them.
+    ``group``: BatchNorm over the global batch of its ranks.
     """
-    return _Conv1x1BNAct.apply(a, w, gamma, beta, eps, relu)
+    return _Conv1x1BNAct.apply(a, w, gamma, beta, eps, relu, group)
 
 
-def conv3x3_bn_act(a, w, gamma, beta, eps: float = 1e-5, relu: bool = False):
+def conv3x3_bn_act(a, w, gamma, beta, eps: float = 1e-5, relu: bool = False, group=None):
     """``(o, mu, var) = BN+ReLU(conv3x3_s1_SAME(a, w))`` with the fused
     backward (K5), the 3x3 counterpart of ``conv1x1_bn_act``."""
-    return _Conv3x3BNAct.apply(a, w, gamma, beta, eps, relu)
+    return _Conv3x3BNAct.apply(a, w, gamma, beta, eps, relu, group)
 
 
 def conv3x3_plane_fits_vmem(h: int, w_: int, ci: int, co: int, itemsize: int,
@@ -313,7 +322,7 @@ def conv_bn(conv, bn, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
     fused op in training mode when ``fused`` and the slot allows it,
     otherwise the two modules as they are.  ``conv`` is the port's
     ``models.resnet.Conv2d`` (stride 1, ungrouped, 1x1 or 3x3); the running
-    statistics are updated either way.  The parameters are the modules'
+    statistics (over ``bn.group``'s ranks) are updated either way.  The parameters are the modules'
     own, so toggling the fold changes no ``state_dict``."""
     ks = conv.kernel_size
     if ks not in (1, 3) or conv.stride != 1 or conv.groups != 1:
@@ -327,6 +336,6 @@ def conv_bn(conv, bn, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
     if not (fused and bn.training):
         return bn(conv(xd))
     op = conv3x3_bn_act if ks == 3 else conv1x1_bn_act
-    o, mu, var = op(xd, conv.weight, bn.weight, bn.bias, bn.eps, bn.relu)
+    o, mu, var = op(xd, conv.weight, bn.weight, bn.bias, bn.eps, bn.relu, bn.group)
     bn.update_stats(mu, var)
     return o

@@ -6,10 +6,11 @@ plus ``--device`` (default ``cuda``).
 
 Every flag is parsed.  ``check_ported`` exits naming the ROADMAP item that
 will port a flag whose value differs from its default and whose layer is
-not ported yet: distribution (A18), SyncBN (A19), the
-gradient-communication stack (A9), the fused CE head (A14), fault
-tolerance beyond the in-step ``--nan-guard`` gate and the checkpoints
-(A11) and observability beyond the epoch CSV (A12).  ``--ckpt-backend
+not ported yet: SyncBN (A19), the gradient-communication stack beyond the
+bf16 wire (A9), the fused CE head (A14), fault tolerance beyond the
+in-step ``--nan-guard`` gate and the checkpoints (A11) and observability
+beyond the epoch CSV (A12).  ``--dist-file`` is accepted and unused, as in
+the JAX package (the bootstrap reads the launcher's environment).  ``--ckpt-backend
 orbax`` exits too: orbax imports JAX, so the port keeps the msgpack format.
 """
 
@@ -23,7 +24,6 @@ from pytorch_distributed_tpu_torch import models
 from pytorch_distributed_tpu_torch.ops.fused_bn import SYNC_BN_ITEM as _SYNC_BN
 from pytorch_distributed_tpu_torch.train.checkpoint import ORBAX_MESSAGE
 
-_DIST = "A18 (multi-process data parallelism: DDP over NCCL and the six other image recipes)"
 _GRAD_COMM = "A9 (gradient-communication stack: --zero, --grad-compress, --overlap)"
 _FUSED_CE = "A14 (fused tied-head cross-entropy, --fused-ce)"
 _FT = "A11 (fault tolerance: rollback policy, --elastic, the preemption guard)"
@@ -31,7 +31,6 @@ _OBS = "A12 (observability: metrics, heartbeats, profiles, ledgers, alerts)"
 
 # dest -> the ROADMAP item that will port it, for flags not ported yet.
 NOT_PORTED = {
-    "dist_file": _DIST,
     "sync_bn": _SYNC_BN,
     **dict.fromkeys(("grad_compress", "zero", "overlap", "bucket_mb"), _GRAD_COMM),
     **dict.fromkeys(("fused_ce_chunks", "fused_ce_mode"), _FUSED_CE),
@@ -43,8 +42,9 @@ NOT_PORTED = {
                      "flight_rec", "hang_timeout", "metrics_port", "alerts",
                      "step_attr"), _OBS),
 }
-# "Recipe decides" flags whose explicit off value is the default behaviour.
-_OFF_VALUES = {"grad_compress": ("none",), "zero": ("none",)}
+# Values of those flags that are ported: "recipe decides" flags whose
+# explicit off value is the default behaviour, and the bf16 gradient wire.
+_PORTED_VALUES = {"grad_compress": ("none", "bf16"), "zero": ("none",)}
 
 
 @dataclasses.dataclass
@@ -158,7 +158,9 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
         help="start from $PTD_TPU_PRETRAINED_DIR/<arch>.msgpack (default directory "
         "pretrained/), a checkpoint either package saved for the same arch")
     add("--seed", default=d.seed, type=int, help="seed for initializing training")
-    add("--dist-file", default=d.dist_file, type=str, help=_NOT_PORTED_HELP)
+    add("--dist-file", default=d.dist_file, type=str,
+        help="accepted for launch-line parity and unused: the bootstrap reads the "
+        "launcher's environment")
     add("--precision", default=d.precision, choices=("fp32", "bf16"),
         help="compute precision (weights stay f32); unset = recipe default")
     add("--synthetic", action="store_true", help="use a synthetic dataset")
@@ -176,7 +178,9 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
         "normalize per batch in C++; u8 uint8 to the card, normalized there; native C++ "
         "JPEG decode + crop per batch, uint8 to the card (--synthetic runs f32)")
     add("--grad-compress", default=d.grad_compress, choices=("none", "bf16", "int8", "fp8"),
-        dest="grad_compress", help=_NOT_PORTED_HELP)
+        dest="grad_compress", help="gradient wire format of data parallelism: bf16 on the "
+        "explicit step's wire, a bf16 rounding under DDP; unset = recipe default (int8 "
+        "and fp8 are not ported yet)")
     add("--zero", default=d.zero, choices=("none", "wus"), help=_NOT_PORTED_HELP)
     add("--overlap", default=d.overlap, choices=("none", "bucketed"), help=_NOT_PORTED_HELP)
     add("--bucket-mb", default=d.bucket_mb, type=float, dest="bucket_mb", metavar="MIB",
@@ -249,7 +253,7 @@ def check_ported(cfg: Config, parser: argparse.ArgumentParser) -> None:
     flags = {a.dest: a.option_strings[0] for a in parser._actions if a.option_strings}
     for dest, item in NOT_PORTED.items():
         value = getattr(cfg, dest)
-        if value != parser.get_default(dest) and value not in _OFF_VALUES.get(dest, ()):
+        if value != parser.get_default(dest) and value not in _PORTED_VALUES.get(dest, ()):
             raise SystemExit(f"{flags[dest]} is not ported to the PyTorch package yet: "
                              f"ROADMAP.md item {item}")
 

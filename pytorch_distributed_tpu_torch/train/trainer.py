@@ -1,5 +1,5 @@
 """Epoch loop of the image recipes, the port of
-``pytorch_distributed_tpu/train/trainer.py`` reduced to one device: data
+``pytorch_distributed_tpu/train/trainer.py``, on one device per process: data
 (synthetic, or an ImageFolder tree through the ``--wire`` pipelines), model,
 SGD, ``train_epoch`` with the LR schedule and the progress meters,
 ``validate`` with exact padded sums, ``fit`` with the best top-1 and the
@@ -8,10 +8,18 @@ JAX package's format): ``--pretrained``, ``--resume`` to the exact step,
 ``--save-steps`` inside an epoch and a save at each epoch's end, with
 ``model_best`` on a new best top-1.
 
+Data parallelism (``ctx`` from ``parallel.initialize``): the device is the
+local rank's, each rank loads ``batch_size // world`` samples of its
+sampler shard, the train step is the GSPMD twin (DDP, global-batch
+BatchNorm) or the explicit one, eval sums are all-reduced; rank 0 alone
+prints, writes the epoch CSV and saves checkpoints while the others wait
+at a barrier; every rank resumes from the same file.
+
 Not ported yet, each exiting from ``train/config.py`` with its ROADMAP item:
-multi-process data parallelism (A18), the divergence rollback policy,
-elastic membership and the preemption guard (A11), and the observability
-layer (A12).  ``--nan-guard`` is ported as the in-step gate.
+``--sync-bn`` (A19), the gradient-communication stack beyond the bf16 wire
+(A9), the divergence rollback policy, elastic membership and the preemption
+guard (A11), and the observability layer (A12).  ``--nan-guard`` is ported
+as the in-step gate.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import warnings
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from pytorch_distributed_tpu_torch import models
 from pytorch_distributed_tpu_torch.data import (
@@ -32,6 +41,7 @@ from pytorch_distributed_tpu_torch.data import (
     SyntheticImageDataset,
 )
 from pytorch_distributed_tpu_torch.data.native import jpeg_native_available
+from pytorch_distributed_tpu_torch.data.native.binding import searched
 from pytorch_distributed_tpu_torch.data.transforms import (
     eval_transform,
     eval_transform_u8,
@@ -44,21 +54,31 @@ from pytorch_distributed_tpu_torch.train.lr import cosine_lr, step_decay_lr
 from pytorch_distributed_tpu_torch.train.meters import AverageMeter, ProgressMeter, StepMeters
 from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.train.steps import make_eval_step, make_train_step
+from pytorch_distributed_tpu_torch.parallel import DistContext, device_for
 from pytorch_distributed_tpu_torch.utils.csvlog import EpochCSVLogger
-from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
 
 class Trainer:
-    """Image training on one device.  ``step_times`` and ``losses`` collect
+    """Image training, one device per process.  ``step_times`` and ``losses`` collect
     every train step's host seconds (as the meter measures them) and its
     loss (a device scalar); ``eval_history`` holds ``(loss, acc1, acc5)`` per
     ``validate``; ``global_step`` counts the train steps taken, restored by
     ``--resume``."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, ctx: Optional[DistContext] = None,
+                 explicit_collectives: bool = False):
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.ctx = ctx or DistContext(0, 1, None)
+        self.explicit_collectives = explicit_collectives
+        self.primary = self.ctx.is_primary
+        self.device = device_for(self.ctx, cfg.device)
         self.seed = cfg.seed if cfg.seed is not None else 0
+        # The global batch divided across processes (the JAX trainer's rule).
+        cfg.nprocs = self.ctx.process_count
+        if cfg.batch_size % cfg.nprocs:
+            raise ValueError(f"global batch {cfg.batch_size} not divisible by {cfg.nprocs} "
+                             "processes")
+        self.local_batch = cfg.batch_size // cfg.nprocs
         self._build_data()
         dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
         self.model = models.create_model(cfg.arch, num_classes=cfg.num_classes, dtype=dtype,
@@ -66,15 +86,18 @@ class Trainer:
                                          device=self.device)
         self.model.init_weights(torch.Generator(device=self.device).manual_seed(self.seed))
         self.optimizer = sgd(self.model.parameters(), cfg.lr, cfg.momentum, cfg.weight_decay)
-        if cfg.accum_steps < 1 or cfg.batch_size % cfg.accum_steps:
-            raise ValueError(f"batch {cfg.batch_size} / --accum-steps {cfg.accum_steps} "
-                             "must be a whole number of samples")
+        if cfg.accum_steps < 1 or self.local_batch % cfg.accum_steps:
+            raise ValueError(f"batch {self.local_batch} per process / --accum-steps "
+                             f"{cfg.accum_steps} must be a whole number of samples")
+        group = self.ctx.group
         self.train_step = make_train_step(self.model, self.optimizer,
                                           accum_steps=cfg.accum_steps,
-                                          guard_nonfinite=cfg.nan_guard)
-        self.eval_step = make_eval_step(self.model)
+                                          guard_nonfinite=cfg.nan_guard, group=group,
+                                          explicit_collectives=explicit_collectives,
+                                          grad_compress=cfg.grad_compress)
+        self.eval_step = make_eval_step(self.model, group)
         self.feeder = DeviceFeeder(self.device)
-        self.csv = EpochCSVLogger(cfg.epoch_csv)
+        self.csv = EpochCSVLogger(cfg.epoch_csv if self.primary else None)
         self.step_times: list = []
         self.losses: list = []
         self.eval_history: list = []
@@ -103,7 +126,7 @@ class Trainer:
                 "so the resumed epoch will not be sample-exact", stacklevel=2)
         if cfg.start_epoch == 0:
             cfg.start_epoch = int(meta["epoch"]) + (0 if self._resume_step > 0 else 1)
-        print(f"=> resumed {meta['arch']} from '{path}' (epoch {meta['epoch']}, step "
+        self.log(f"=> resumed {meta['arch']} from '{path}' (epoch {meta['epoch']}, step "
               f"{self._resume_step}, best_acc1 {self.best_acc1:.3f})")
 
     def _load_pretrained(self) -> None:
@@ -118,20 +141,32 @@ class Trainer:
                 f"directory containing {self.cfg.arch}.msgpack (a checkpoint saved by this "
                 "framework)")
         load_checkpoint(path, self.model, self.optimizer)
-        print(f"=> using pre-trained model '{self.cfg.arch}' from '{path}'")
+        self.log(f"=> using pre-trained model '{self.cfg.arch}' from '{path}'")
+
+    def log(self, line: str) -> None:
+        """Print on rank 0 only."""
+        if self.primary:
+            print(line, flush=True)
 
     def _ft_record(self, epoch: int, step_in_epoch: int) -> dict:
         return {"step": int(step_in_epoch), "global_step": int(self.global_step),
                 "sampler_seed": int(self.train_sampler.seed), "sampler_epoch": int(epoch),
                 "lr_scale": 1.0}
 
-    def save(self, epoch: int, step_in_epoch: int = 0, is_best: bool = False) -> str:
+    def save(self, epoch: int, step_in_epoch: int = 0, is_best: bool = False
+             ) -> Optional[str]:
         """Checkpoint to ``--checkpoint-dir``: at an epoch's end
-        (``step_in_epoch`` 0) or after ``step_in_epoch`` steps of ``epoch``."""
+        (``step_in_epoch`` 0) or after ``step_in_epoch`` steps of ``epoch``.
+        Rank 0 writes (and returns the path); every rank waits for it."""
         cfg = self.cfg
-        return save_checkpoint(cfg.checkpoint_dir, self.model, self.optimizer, self.global_step,
-                               epoch, cfg.arch, self.best_acc1, is_best,
-                               ft=self._ft_record(epoch, step_in_epoch))
+        path = None
+        if self.primary:
+            path = save_checkpoint(cfg.checkpoint_dir, self.model, self.optimizer,
+                                   self.global_step, epoch, cfg.arch, self.best_acc1, is_best,
+                                   ft=self._ft_record(epoch, step_in_epoch))
+        if self.ctx.group is not None:
+            dist.barrier(group=self.ctx.group)
+        return path
 
     def _build_data(self) -> None:
         """Datasets, samplers and loaders, as the JAX trainer builds them:
@@ -143,7 +178,8 @@ class Trainer:
             self.train_set = SyntheticImageDataset(length=cfg.synthetic_length,
                                                    num_classes=cfg.num_classes,
                                                    image_size=cfg.image_size, seed=self.seed)
-            self.val_set = SyntheticImageDataset(length=max(cfg.synthetic_length // 10, 2),
+            self.val_set = SyntheticImageDataset(length=max(cfg.synthetic_length // 10,
+                                                            2 * self.ctx.process_count),
                                                  num_classes=cfg.num_classes,
                                                  image_size=cfg.image_size, seed=self.seed + 1)
         elif cfg.wire == "native":
@@ -151,8 +187,9 @@ class Trainer:
             # uint8 to the card, normalized there.
             if not jpeg_native_available():
                 raise RuntimeError(
-                    "--wire native needs the C++ data plane built against libjpeg (g++ and "
-                    "libjpeg-dev); use --wire u8 or u8host on this host")
+                    "--wire native needs the C++ data plane built against libjpeg: no "
+                    f"libjpeg.so.62 on this host (searched: {searched('jpeg')}); use --wire u8 "
+                    "or u8host on this host")
             self.train_set = ImageFolder(f"{cfg.data}/train", native_decode=True,
                                          image_size=cfg.image_size, native_augment=True)
             self.val_set = ImageFolder(f"{cfg.data}/val", native_decode=True,
@@ -167,10 +204,11 @@ class Trainer:
             self.train_set = ImageFolder(f"{cfg.data}/train", transform=ttf)
             self.val_set = ImageFolder(f"{cfg.data}/val", transform=vtf)
             cfg.num_classes = len(self.train_set.classes)
-        self.train_sampler = DistributedShardSampler(len(self.train_set), 1, 0, shuffle=True,
-                                                     seed=self.seed)
-        self.val_sampler = DistributedShardSampler(len(self.val_set), 1, 0, shuffle=False,
-                                                   seed=self.seed)
+        world, rank = self.ctx.process_count, self.ctx.process_index
+        self.train_sampler = DistributedShardSampler(len(self.train_set), world, rank,
+                                                     shuffle=True, seed=self.seed)
+        self.val_sampler = DistributedShardSampler(len(self.val_set), world, rank,
+                                                   shuffle=False, seed=self.seed)
         # drop_last on train: a zero-padded partial batch would pollute that
         # batch's BatchNorm statistics; eval pads and masks, so it is exact.
         # Synthetic datasets emit f32; the wire modes apply to ImageFolder.
@@ -178,10 +216,10 @@ class Trainer:
             "f32": "f32", "u8host": "u8_host", "u8": "u8_wire", "native": "u8_wire"}[cfg.wire]
         common = dict(num_workers=cfg.workers, seed=self.seed, batch_mode=batch_mode,
                       worker_type=cfg.worker_type)
-        self.train_loader = DataLoader(self.train_set, cfg.batch_size,
+        self.train_loader = DataLoader(self.train_set, self.local_batch,
                                        sampler=self.train_sampler, drop_last=True,
                                        random_flip=batch_mode != "f32", **common)
-        self.val_loader = DataLoader(self.val_set, cfg.batch_size, sampler=self.val_sampler,
+        self.val_loader = DataLoader(self.val_set, self.local_batch, sampler=self.val_sampler,
                                      **common)
 
     def epoch_lr(self, epoch: int) -> float:
@@ -214,7 +252,8 @@ class Trainer:
             metrics = self.train_step(batch, lr)
             self.step_times.append(meters.update(metrics, self.cfg.batch_size))
             self.losses.append(metrics["loss"])
-            meters.maybe_display(i, self.cfg.print_freq)
+            if self.primary:
+                meters.maybe_display(i, self.cfg.print_freq)
             self.global_step += 1
             completed = i + 1
             if save_steps > 0 and completed % save_steps == 0 and completed < epoch_len:
@@ -247,13 +286,13 @@ class Trainer:
                 totals[k] += sums[k]
             batch_time.update(time.time() - end)
             end = time.time()
-            if i % self.cfg.print_freq == 0:
+            if self.primary and i % self.cfg.print_freq == 0:
                 progress.display(i)
         count = max(totals["count"], 1.0)
         acc1 = totals["correct1"] * 100.0 / count
         acc5 = totals["correct5"] * 100.0 / count
         self.eval_history.append((totals["loss_sum"] / count, acc1, acc5))
-        print(f" * Acc@1 {acc1:.3f} Acc@5 {acc5:.3f}", flush=True)
+        self.log(f" * Acc@1 {acc1:.3f} Acc@5 {acc5:.3f}")
         return acc1
 
     def fit(self) -> float:
@@ -267,7 +306,7 @@ class Trainer:
             self.csv.epoch_start()
             self.train_epoch(epoch, self._resume_step if epoch == cfg.start_epoch else 0)
             acc1 = self.validate()
-            print(f"Epoch {epoch} took {self.csv.epoch_end():.1f}s", flush=True)
+            self.log(f"Epoch {epoch} took {self.csv.epoch_end():.1f}s")
             is_best = acc1 > self.best_acc1
             self.best_acc1 = max(acc1, self.best_acc1)
             self.save(epoch, is_best=is_best)

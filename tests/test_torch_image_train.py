@@ -233,7 +233,7 @@ def test_recipe_trains_on_cpu(tmp_path, capsys):
     (["--profile-dir", "p"], "ROADMAP.md item A12"),
     (["--ft-rollback-k", "5"], "ROADMAP.md item A11"),
     (["--metrics-jsonl", "m.jsonl"], "ROADMAP.md item A12"),
-    (["--dist-file", "f"], "ROADMAP.md item A18"), (["-a", "vgg16"], "ROADMAP.md item A10")])
+    (["--grad-compress", "fp8"], "ROADMAP.md item A9"), (["-a", "vgg16"], "ROADMAP.md item A10")])
 def test_unported_flags_exit_naming_their_item(flag, reason):
     with pytest.raises(SystemExit) as exc:
         tpu_native.main(TINY_ARGS + flag)
