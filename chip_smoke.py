@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's serving, LM training and image training paths,
-their checkpoints, image training from an ImageFolder tree on disk and the
-data-parallel image recipes, on one NVIDIA H100 and check them.
+their checkpoints, image training from an ImageFolder tree on disk, the
+data-parallel image recipes, the fused CE head, int8 weights and
+speculative decoding, on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -133,7 +134,40 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     it, which must exceed them: per-rank BatchNorm (plain DDP) and K4/K5's
     per-channel vectors from this rank's sums alone.  Prints the DDP step
     against the launcher-less one on one device batch and the all-reduce
-    time of ResNet-50's gradients.
+    time of ResNet-50's gradients.  Then ``--sync-bn`` on the explicit step
+    (``horovod_distributed``, f32, TF32 off, ``--grad-compress none``,
+    without ``--fused-convbn``, which it refuses with the JAX message): at
+    world 1 over NCCL bitwise equal to the run without it; 2 gloo ranks of
+    b128 with it within ``WORLD_*`` of that run, and the same ranks without
+    it (per-rank BatchNorm, the control) outside them;
+17. the fused tied-head cross-entropy at the LM's full width (L=4096, B=4):
+    one f32 step (TF32 off) with ``--fused-ce 8``'s loss against the
+    unfused head on the same weights and tokens (loss 1e-5 relative; the
+    gradients of ``embed``, ``ln_f`` and the last block 1e-3 of their
+    largest), then ``recipes.lm_pretrain`` bf16 for 8 steps with
+    ``--fused-ce 8`` and without: K1, K2 and K3 once per layer per step;
+    prints step time, tokens/s and peak memory of each;
+18. ``generate`` with int8 weight-only block kernels (``quantize_lm``) at
+    the serving cell (bf16, 4 prompts of 4096 tokens, 32 new tokens): K1
+    once per layer per prefill; greedy tokens equal to those of the
+    dequantized weights ``w_q * scale`` in the same dtype up to each row's
+    first difference, which must sit where that run's top-2 logit gap is
+    under ``INT8_BF16_GAP`` in bf16 and 1e-3 in f32; prints prefill and
+    decode times and the parameter bytes against the bf16 model.  Then
+    ``speculative_generate`` (batch 1, 512-token prompt, 64 tokens, gamma
+    4, f32, TF32 off) with the default random draft (a quarter of the
+    width and depth) and with the target as its own draft: the target's
+    greedy stream under the same rule (1e-3), the self draft at least
+    0.9 * (gamma + 1) tokens per target pass; and ``recipes.lm_generate
+    --quant int8 --spec-draft random``;
+19. phase 12's engine on its trace cut to 16 requests, plain, at
+    ``quant="int8"`` and with ``gamma=3`` and a one-layer draft of
+    ``serve_lm``'s default head dim (4: 64 wide at 16 heads; ``serve_lm``'s
+    16-wide default would make 1-wide heads): each a single captured graph replayed per
+    iteration; the speculative engine's tokens equal the plain engine's,
+    the int8 engine's the int8 dense path's on 90% of the first 8
+    requests, both under the 1e-3 top-2 rule; ``serve_lm.main --quant int8
+    --gamma 3`` serves 8 requests; none of K1-K5 launches.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
@@ -836,6 +870,13 @@ def data_phase(dev, card, arch="resnet50", batch=256, image_size=224, classes=10
 # to OUT/state.pt.
 # World 2 against world 1 (f32, TF32 off, 3 steps): the limits lie between
 # the sound run's readings and its controls' (PERF.md, phase 16).
+# int8 generate in bf16 against the dequantized weights in bf16: the two
+# round at other points (x @ w_q then * scale, against x @ (w_q * scale)), so
+# their logits differ by bf16 noise, measured up to 0.0625 on the last
+# prefill position (two bf16 ulps of a logit in [4, 8); f32: 9.1e-6); a
+# greedy token may flip only where the reference's top-2 gap is below twice
+# that.
+INT8_BF16_GAP = 0.125
 WORLD_LOSS_REL = 7e-7
 WORLD_WEIGHT_ABS = 3.5e-4
 WORLD_LAYER = 1e-4
@@ -1024,43 +1065,50 @@ def dp_phase(card, steps=3, batch=256, per_step=(33, 13)):
     common = dp_args(steps, batch)
     launches, results = [0, 0], {}
     try:
-        for name in DP_RECIPES:
-            out = os.path.join(root, name)
-            args = common + ["--checkpoint-dir", os.path.join(out, "ckpt"),
-                             "--epoch-csv", os.path.join(out, "epochs.csv")]
-            if name in ("distributed", "tpu_native"):
-                args += ["--precision", "bf16"]  # the same run: the bitwise check
-            env, torchrun = {}, name in ("distributed", "apex_distributed")
-            if name in ("multiprocessing_distributed", "dataparallel"):
-                # Their own launcher, on a free port in place of 23456.
-                env = {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}"}
-            elif name == "horovod_distributed":
-                env = {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}",
-                       "PTD_TPU_NUM_PROCESSES": "1", "PTD_TPU_PROCESS_ID": "0"}
-            elif name == "distributed_slurm_main":
-                env = {"SLURM_PROCID": "0", "SLURM_NTASKS": "1",
-                       "PTD_TPU_PORT": str(_free_port())}
-            t0 = time.perf_counter()
-            flags = ("--time",) if name in ("distributed", "tpu_native") else ()
-            (log,) = _wait([_launch(name, out, args, flags, env, torchrun)], name)
-            with open(os.path.join(out, "result0.json")) as f:
-                res = json.load(f)
-            res["wall_s"] = time.perf_counter() - t0
-            results[name] = res
-            want = [per_step[0] * steps, per_step[1] * steps]
-            backend_ok = res["backend"] == ("nccl" if name != "tpu_native" else None)
-            print(f"[dp] {name}: backend {res['backend']}, world {res['world']}, "
-                  f"{res['precision']}, explicit {res['explicit']}, wire {res['wire']}, "
-                  f"launches K4/K5 {res['launches']} over {res['steps']} steps, losses "
-                  f"{res['losses']}, eval {res['eval']}, run {res['run_s']} s, process "
-                  f"{res['wall_s']} s; card {card}")
-            if not (backend_ok and res["launches"] == want and res["steps"] == steps
-                    and all(math.isfinite(x) for x in res["losses"] + res["eval"][:1])):
-                raise SystemExit(f"{name}: backend {res['backend']}, launches "
-                                 f"{res['launches']} (expected {want}) or losses wrong:\n"
-                                 f"{log[-3000:]}")
-            launches[0] += res["launches"][0]
-            launches[1] += res["launches"][1]
+        # The two timed recipes run alone; the others two at a time on the
+        # card (their launch counts and results are per process).
+        for group in (("distributed",), ("tpu_native",),
+                      ("apex_distributed", "multiprocessing_distributed"),
+                      ("dataparallel", "horovod_distributed"), ("distributed_slurm_main",)):
+            procs, t0 = [], time.perf_counter()
+            for name in group:
+                out = os.path.join(root, name)
+                args = common + ["--checkpoint-dir", os.path.join(out, "ckpt"),
+                                 "--epoch-csv", os.path.join(out, "epochs.csv")]
+                if name in ("distributed", "tpu_native"):
+                    args += ["--precision", "bf16"]  # the same run: the bitwise check
+                env, torchrun = {}, name in ("distributed", "apex_distributed")
+                if name in ("multiprocessing_distributed", "dataparallel"):
+                    # Their own launcher, on a free port in place of 23456.
+                    env = {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}"}
+                elif name == "horovod_distributed":
+                    env = {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+                           "PTD_TPU_NUM_PROCESSES": "1", "PTD_TPU_PROCESS_ID": "0"}
+                elif name == "distributed_slurm_main":
+                    env = {"SLURM_PROCID": "0", "SLURM_NTASKS": "1",
+                           "PTD_TPU_PORT": str(_free_port())}
+                flags = ("--time",) if name in ("distributed", "tpu_native") else ()
+                procs.append(_launch(name, out, args, flags, env, torchrun))
+            logs = _wait(procs, " + ".join(group))
+            for name, log in zip(group, logs):
+                with open(os.path.join(root, name, "result0.json")) as f:
+                    res = json.load(f)
+                res["wall_s"] = time.perf_counter() - t0
+                results[name] = res
+                want = [per_step[0] * steps, per_step[1] * steps]
+                backend_ok = res["backend"] == ("nccl" if name != "tpu_native" else None)
+                print(f"[dp] {name}: backend {res['backend']}, world {res['world']}, "
+                      f"{res['precision']}, explicit {res['explicit']}, wire {res['wire']}, "
+                      f"launches K4/K5 {res['launches']} over {res['steps']} steps, losses "
+                      f"{res['losses']}, eval {res['eval']}, run {res['run_s']} s, processes "
+                      f"{' + '.join(group)} {res['wall_s']} s; card {card}")
+                if not (backend_ok and res["launches"] == want and res["steps"] == steps
+                        and all(math.isfinite(x) for x in res["losses"] + res["eval"][:1])):
+                    raise SystemExit(f"{name}: backend {res['backend']}, launches "
+                                     f"{res['launches']} (expected {want}) or losses wrong:\n"
+                                     f"{log[-3000:]}")
+                launches[0] += res["launches"][0]
+                launches[1] += res["launches"][1]
 
         # distributed (DDP over NCCL, world 1) against tpu_native (no group).
         a = torch.load(os.path.join(root, "distributed", "state.pt"))
@@ -1081,9 +1129,111 @@ def dp_phase(card, steps=3, batch=256, per_step=(33, 13)):
               f"{d['allreduce_ms']} ms (median of 10); card {card}")
 
         world_invariance(card, root, common, steps, batch, per_step)
+        sync_bn_check(card, root, steps, batch)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+SYNC_BN_REFUSAL = ("--sync-bn and --fused-convbn are mutually exclusive: the fused conv+BN "
+                   "backward has no cross-replica statistics variant; drop one of the flags")
+
+
+@contextlib.contextmanager
+def _environ(**env):
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def sync_bn_check(card, root, steps=3, batch=256):
+    """Phase 16's ``--sync-bn`` (the explicit step's cross-replica
+    BatchNorm), ``horovod_distributed`` without ``--fused-convbn`` (the
+    explicit step refuses the two together), f32, TF32 off, ``--grad-compress
+    none``: at world 1 over NCCL the flag must change no bit; 2 gloo ranks of
+    b``batch // 2`` with it must match that world-1 run within ``WORLD_*``,
+    and the same 2 ranks without it (per-rank BatchNorm, the control) must
+    not; the flag with ``--fused-convbn`` must exit with the JAX message."""
+    args = [a for a in dp_args(steps, batch) if a != "--fused-convbn"] + [
+        "--precision", "fp32", "--grad-compress", "none"]
+    runs = {}
+    # Two runs at a time share the card: the world-1 pair, then the two
+    # world-2 runs (four processes).
+    for pair in ((("world 1", 1, []), ("world 1 --sync-bn", 1, ["--sync-bn"])),
+                 (("world 2 --sync-bn", 2, ["--sync-bn"]),
+                  ("control: world 2 per-rank BatchNorm", 2, []))):
+        procs, t0 = [], time.perf_counter()
+        for tag, world, extra in pair:
+            out = os.path.join(root, "sync_bn_" + re.sub(r"\W+", "_", tag))
+            port = _free_port()
+            procs += [_launch("horovod_distributed", out,
+                              args + extra + ["--checkpoint-dir", os.path.join(out, "ckpt")],
+                              ("--tf32-off",),
+                              {"PTD_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                               "PTD_TPU_NUM_PROCESSES": str(world),
+                               "PTD_TPU_PROCESS_ID": str(r)})
+                      for r in range(world)]
+        _wait(procs, "horovod_distributed (" + " and ".join(t for t, _, _ in pair) + ")")
+        for tag, world, _ in pair:
+            out = os.path.join(root, "sync_bn_" + re.sub(r"\W+", "_", tag))
+            res = []
+            for r in range(world):
+                with open(os.path.join(out, f"result{r}.json")) as f:
+                    res.append(json.load(f))
+            runs[tag] = (res, torch.load(os.path.join(out, "state.pt")),
+                         time.perf_counter() - t0)
+            want_backend = "nccl" if world == 1 else "gloo"
+            if not (all(r["backend"] == want_backend and r["explicit"] for r in res)
+                    and all(r["losses"] == res[0]["losses"] for r in res)
+                    and all(math.isfinite(x) for x in res[0]["losses"])):
+                raise SystemExit(f"horovod_distributed ({tag}): backend, explicit step or "
+                                 f"losses wrong: {res}")
+    (r1, s1, t1), (rs, ss, _) = runs["world 1"], runs["world 1 --sync-bn"]
+    same = r1[0]["losses"] == rs[0]["losses"] and all(torch.equal(s1[k], ss[k]) for k in s1)
+    print(f"[dp] horovod_distributed --sync-bn at world 1 (NCCL, f32, TF32 off, unfused, "
+          f"{steps} steps) vs without: bitwise {'equal' if same else 'DIFFERENT'}, losses "
+          f"{rs[0]['losses']} vs {r1[0]['losses']} (the pair side by side: {t1} s); "
+          f"card {card}")
+    if not same:
+        raise SystemExit("--sync-bn changed the explicit step at world 1")
+    for tag in ("world 2 --sync-bn", "control: world 2 per-rank BatchNorm"):
+        r2, s2, t2 = runs[tag]
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(r2[0]["losses"], r1[0]["losses"]))
+        worst = max((s2[k].float() - w.float()).abs().max().item() for k, w in s1.items())
+        within = loss_rel <= WORLD_LOSS_REL and worst <= WORLD_WEIGHT_ABS
+        print(f"[dp] explicit step world invariance ({tag}), f32 TF32 off, {steps} steps: 2 "
+              f"ranks x b{batch // 2} over gloo (both runs side by side: {t2} s) vs 1 rank x "
+              f"b{batch} over NCCL: "
+              f"losses {r2[0]['losses']} vs {r1[0]['losses']} (max rel {loss_rel}, limit "
+              f"{WORLD_LOSS_REL}); weights and statistics max abs diff {worst} (limit "
+              f"{WORLD_WEIGHT_ABS}); within the limits: {within}; card {card}")
+        if within != tag.startswith("world 2"):
+            raise SystemExit(f"explicit step world invariance ({tag}): within the limits "
+                             f"{within}")
+    from pytorch_distributed_tpu_torch.recipes import horovod_distributed
+
+    out = os.path.join(root, "sync_bn_refusal")
+    with _environ(PTD_TPU_COORDINATOR=f"127.0.0.1:{_free_port()}", PTD_TPU_NUM_PROCESSES="1",
+                  PTD_TPU_PROCESS_ID="0"):
+        try:
+            horovod_distributed.main(dp_args(1, 8) + [
+                "--sync-bn", "--checkpoint-dir", out, "--epoch-csv",
+                os.path.join(out, "epochs.csv"), "--device", "cuda"])
+            message = None
+        except ValueError as e:
+            message = str(e)
+    print(f"[dp] horovod_distributed --sync-bn --fused-convbn: {message!r}; group left up: "
+          f"{torch.distributed.is_initialized()}")
+    if message != SYNC_BN_REFUSAL or torch.distributed.is_initialized():
+        raise SystemExit("--sync-bn --fused-convbn on the explicit step was not refused "
+                         "with the JAX message")
 
 
 def world_invariance(card, root, common, steps=3, batch=256, per_step=(33, 13)):
@@ -1142,6 +1292,356 @@ def world_invariance(card, root, common, steps=3, batch=256, per_step=(33, 13)):
                           f"the world-invariance check cannot see its {tag}")
     if failed:
         raise SystemExit("; ".join(failed))
+
+
+def _param_bytes(model) -> int:
+    """Bytes the model keeps on the card: parameters and buffers."""
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def _first_diff(got, want):
+    return next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), len(want))
+
+
+def _greedy_rule(model, prompt, got, want, gap_limit, what):
+    """Each row of ``got`` equals ``want`` up to its first difference, and
+    there ``model``'s top-2 logit gap (teacher-forced on the prompt and
+    ``want``) is under ``gap_limit``; returns the tokens compared (before
+    the first difference) and the gaps found at differences."""
+    compared, gaps = 0, []
+    for b in range(prompt.shape[0]):
+        g, w = got[b].tolist(), want[b].tolist()
+        j = _first_diff(g, w)
+        compared += j
+        if j < len(w):
+            seq = torch.cat([prompt[b:b + 1], want[b:b + 1, :j].to(prompt.dtype)], dim=1)
+            with torch.no_grad():
+                gap = _top2_gaps(model(seq)[0, -1])
+            gaps.append(gap)
+            if not gap < gap_limit:
+                raise SystemExit(f"{what}: row {b} differs at token {j}, where the reference's "
+                                 f"top-2 logit gap is {gap} (limit {gap_limit})")
+    return compared, gaps
+
+
+def fused_ce_phase(dev, card, cfg, steps=8, TB=4, TL=4096, chunks=8):
+    """Phase 17: ``lm_pretrain --fused-ce`` at the LM cell's full width.
+    Returns the (K1, K2, K3) launches of its training runs."""
+    from pytorch_distributed_tpu_torch.train.lm import SyntheticTokenDataset
+
+    # f32, TF32 off: the fused loss against the unfused head on the same
+    # weights and tokens.  They differ in summation order only (the head's
+    # products in row blocks, the softmax sums per block): loss 1e-5
+    # relative, gradients 1e-3 of their largest, as phase 7's flash-vs-dense
+    # check holds the same model.
+    tokens = torch.from_numpy(SyntheticTokenDataset(TB, TL, cfg["vocab_size"]).batch(0, TB)).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs, weights, peak = {}, None, {}
+    for n in (chunks, 0):
+        model = TransformerLM(**cfg, dtype=torch.float32, device=dev)
+        if weights is None:
+            weights = model.init_weights(torch.Generator(device=dev).manual_seed(0)).state_dict()
+        else:
+            model.load_state_dict(weights)
+        torch.cuda.reset_peak_memory_stats()
+        loss = lm_loss(model, tokens, n)[0]
+        loss.backward()
+        torch.cuda.synchronize()
+        peak[n] = torch.cuda.max_memory_allocated() / 2**30
+        last = f"blocks.{cfg['n_layers'] - 1}."
+        runs[n] = (loss.item(), {k: p.grad for k, p in model.named_parameters()
+                                 if k.startswith(("embed.", "ln_f.", last))})
+        del model, loss
+    del weights
+    (lf, gf), (lu, gu) = runs[chunks], runs[0]
+    loss_err = abs(lf - lu) / abs(lu)
+    rel = {k: ((g - gu[k]).abs().max() / gu[k].abs().max()).item() for k, g in gf.items()}
+    worst = max(rel, key=rel.get)
+    print(f"[fused-ce] f32 TF32 off, B={TB} L={TL}, {chunks} chunks vs the unfused head: loss "
+          f"{lf} vs {lu} (rel err {loss_err:.3e}, limit 1e-5); worst gradient of embed, ln_f "
+          f"and the last block {worst} rel err {rel[worst]:.3e} (limit 1e-3 of its max); peak "
+          f"memory of the step {peak[chunks]} vs {peak[0]} GiB; card {card}")
+    if not (loss_err <= 1e-5 and all(r <= 1e-3 for r in rel.values())):
+        raise SystemExit("the fused CE loss disagrees with the unfused head")
+    del runs, gf, gu
+    torch.cuda.empty_cache()
+
+    # bf16 through the recipe, fused then unfused: step time and memory.
+    total = [0, 0, 0]
+    for n in (chunks, 0):
+        flash_attention.launches = 0
+        flash_attention_bwd_dq.launches = flash_attention_bwd_dkv.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = lm_pretrain.run([
+            "--vocab", str(cfg["vocab_size"]), "--d-model", str(cfg["d_model"]),
+            "--n-heads", str(cfg["n_heads"]), "--n-layers", str(cfg["n_layers"]),
+            "--seq-len", str(TL), "-b", str(TB), "--steps", str(steps), "--precision", "bf16",
+            "--no-eval", "--fused-ce", str(n), "-p", "4", "--device", str(dev)])
+        torch.cuda.synchronize()
+        launches = (flash_attention.launches, flash_attention_bwd_dq.launches,
+                    flash_attention_bwd_dkv.launches)
+        losses = [float(x) for x in trainer.losses]
+        step_ms = statistics.median(trainer.step_times[1:]) * 1e3
+        print(f"[fused-ce] lm_pretrain --fused-ce {n} B={TB} L={TL} bf16 compute, f32 weights: "
+              f"step {step_ms} ms (median of steps 2-{steps}; all "
+              f"{[t * 1e3 for t in trainer.step_times]}), {TB * TL / step_ms * 1e3} tokens/s; "
+              f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30} GiB; losses "
+              f"{losses}; launches K1/K2/K3 {launches}; card {card}")
+        if launches != (cfg["n_layers"] * steps,) * 3:
+            raise SystemExit(f"--fused-ce {n} training launched (K1, K2, K3) {launches} "
+                             f"times in {steps} steps")
+        if not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"non-finite --fused-ce {n} loss: {losses}")
+        total = [a + b for a, b in zip(total, launches)]
+        del trainer
+    torch.cuda.empty_cache()
+    return total
+
+
+def _decode_times(model, prompt, n_new, reps=3):
+    """``[(prefill + first token ms, decode ms/token)]`` of ``generate``,
+    ``reps`` times."""
+    out = []
+    for _ in range(reps):
+        times = {}
+        for n in (1, n_new + 1):
+            t0 = time.perf_counter()
+            generate(model, prompt, n)
+            torch.cuda.synchronize()
+            times[n] = (time.perf_counter() - t0) * 1e3
+        out.append((times[1], (times[n_new + 1] - times[1]) / n_new))
+    return out
+
+
+def generate_variants_phase(dev, card, cfg, B=4, P=4096, N=32, gamma=4, SP=512, SN=64):
+    """Phase 18: int8 weight-only ``generate`` and speculative decoding at
+    the LM's full width.  Returns the K1 launches of its int8 prefills."""
+    from pytorch_distributed_tpu_torch.models.quant import QuantDense, quantize_lm
+    from pytorch_distributed_tpu_torch.models.speculative import speculative_generate
+
+    torch.cuda.empty_cache()
+    prompt = torch.randint(0, cfg["vocab_size"], (B, P), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    flash_attention.launches = 0
+    fp = TransformerLM(**cfg, dtype=torch.bfloat16, param_dtype=torch.float32, device=dev)
+    fp.init_weights(torch.Generator(device=dev).manual_seed(0))
+    t0 = time.perf_counter()
+    q = quantize_lm(fp)
+    quant_s = time.perf_counter() - t0
+    bf16 = TransformerLM(**cfg, dtype=torch.bfloat16, device=dev)
+    bf16.load_state_dict(fp.state_dict())
+    del fp
+    generate(q, prompt, 2)  # warm-up
+    generate(bf16, prompt, 2)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = {"int8": _decode_times(q, prompt, N)}
+    k1 = flash_attention.launches
+    int8_peak = torch.cuda.max_memory_allocated() / 2**30
+    times["bf16"] = _decode_times(bf16, prompt, N)
+    if k1 != cfg["n_layers"] * 2 * len(times["int8"]):
+        raise SystemExit(f"int8 generate launched K1 {k1} times in {2 * len(times['int8'])} "
+                         f"prefills of {cfg['n_layers']} layers")
+    for name, model in (("int8", q), ("bf16", bf16)):
+        print(f"[int8] {name} B={B} P={P}: (prefill + first token ms, decode ms/token) "
+              f"{times[name]}; resident parameter bytes {_param_bytes(model)}; card {card}")
+    print(f"[int8] quantized in {quant_s} s; K1 launches {k1} over {2 * len(times['int8'])} "
+          f"int8 prefills; peak memory of the int8 runs {int8_peak} GiB")
+    del bf16
+
+    # Greedy tokens against the dequantized weights w_q * scale, held in the
+    # same compute dtype: bf16, then f32 (TF32 off).
+    for dtype in (torch.bfloat16, torch.float32):
+        qd = q if dtype == torch.bfloat16 else TransformerLM(**dict(q.config, dtype=dtype,
+                                                                  param_dtype=dtype))
+        if qd is not q:
+            qd.load_state_dict(q.state_dict())
+        deq = TransformerLM(**cfg, dtype=dtype, param_dtype=torch.float32, device=dev)
+        sd = {}
+        for k, t in qd.state_dict().items():
+            if k.endswith(".w_q"):
+                sd[k[:-4] + ".weight"] = t.float() * qd.state_dict()[k[:-4] + ".scale"][:, None]
+            elif not k.endswith(".scale"):
+                sd[k] = t.float()
+        deq.load_state_dict(sd)
+        got, want = generate(qd, prompt, N), generate(deq, prompt, N)
+        with torch.no_grad():
+            lq, ld = (m(prompt[:1]).float()[0, -1] for m in (qd, deq))
+        dl = (lq - ld).abs().max().item()
+        limit = 1e-3 if dtype == torch.float32 else INT8_BF16_GAP
+        compared, gaps = _greedy_rule(deq, prompt, got, want, limit, f"int8 {dtype}")
+        print(f"[int8] {dtype} greedy tokens vs the dequantized weights: {compared} of "
+              f"{want.numel()} identical before each row's first difference; top-2 gaps there "
+              f"{gaps} (limit {limit}); last prefill logit max |int8 - dequantized| {dl}")
+        if not isinstance(qd.blocks[0].attn.qkv, QuantDense):
+            raise SystemExit("the int8 model has no QuantDense")
+        del qd, deq, got, want
+    del q
+    torch.cuda.empty_cache()
+
+    # Speculative decoding, batch 1, f32 (TF32 off): against the target's
+    # own greedy stream (dense cache path), with the default random draft
+    # and with the target as its own draft.
+    target = TransformerLM(**cfg, dtype=torch.float32, device=dev)
+    target.init_weights(torch.Generator(device=dev).manual_seed(0))
+    draft = TransformerLM(vocab_size=cfg["vocab_size"], d_model=max(32, cfg["d_model"] // 4),
+                          n_heads=max(1, cfg["n_heads"] // 4),
+                          n_layers=max(1, cfg["n_layers"] // 4), dtype=torch.float32,
+                          device=dev)
+    draft.init_weights(torch.Generator(device=dev).manual_seed(1))
+    sp = prompt[:1, :SP]
+    greedy_generate(target, sp, 4, flash_prefill=False)  # warm-up
+    speculative_generate(target, draft, sp, 8, gamma=gamma)
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    want = greedy_generate(target, sp, SN, flash_prefill=False)
+    torch.cuda.synchronize()
+    greedy_ms = (time.perf_counter() - t0) * 1e3 / SN
+    for name, d in (("random draft", draft), ("self draft", target)):
+        t0 = time.perf_counter()
+        got, stats = speculative_generate(target, d, sp, SN, gamma=gamma)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / SN
+        compared, gaps = _greedy_rule(target, sp, got, want, 1e-3, f"speculative ({name})")
+        print(f"[spec] {name} gamma={gamma}, P={SP}, {SN} tokens, f32: {compared} of {SN} "
+              f"tokens identical to greedy_generate before the first difference (gaps there "
+              f"{gaps}); stats {stats}; {ms} ms/token against greedy {greedy_ms} ms/token; "
+              f"card {card}")
+        if name == "self draft" and stats["tokens_per_target_pass"] < 0.9 * (gamma + 1):
+            raise SystemExit(f"self-draft speculation made {stats['tokens_per_target_pass']} "
+                             f"tokens per target pass, under {0.9 * (gamma + 1)}")
+    if flash_attention.launches:
+        raise SystemExit("speculative decoding at P=512 launched K1")
+    del target, draft
+    torch.cuda.empty_cache()
+
+    rc = lm_generate.main([
+        "--random-init", "--vocab", str(cfg["vocab_size"]), "--d-model", str(cfg["d_model"]),
+        "--n-heads", str(cfg["n_heads"]), "--n-layers", str(cfg["n_layers"]),
+        "--precision", "bf16", "--quant", "int8", "--spec-draft", "random",
+        "--prompt-tokens", ",".join(str(t) for t in sp[0].tolist()), "-n", "16",
+        "--device", str(dev)])
+    if rc != 0:
+        raise SystemExit(f"lm_generate --quant int8 --spec-draft random returned {rc}")
+    torch.cuda.empty_cache()
+    return k1
+
+
+def engine_variants_phase(dev, card, lm, kv_blocks=385, n_requests=16, n_dense=8, gamma=3):
+    """Phase 19: the serving engine of phase 12 at int8 and with a
+    speculative draft, on a trace cut to ``n_requests``."""
+    from pytorch_distributed_tpu_torch.models.quant import quantize_state_dict
+
+    kernels = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv,
+               fused_dgrad_wgrad, fused_dgrad_wgrad_3x3)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm_params(**lm, seed=0, device=dev)
+    eng_cfg = dict(lm, max_batch=16, kv_blocks=kv_blocks, block_size=16, blocks_per_seq=64,
+                   chunk_size=128, max_new_tokens=384, policy="fcfs",
+                   defrag_threshold_pct=50.0, device=dev)
+    load_cfg = LoadConfig(n_requests=n_requests, rate_rps=200.0, profile="mixed",
+                          vocab_size=lm["vocab_size"], prompt_min=128, prompt_max=512,
+                          short_min=16, short_max=64, long_min=256, long_max=384,
+                          long_frac=0.2, seed=0)
+    prompts = {r.rid: list(r.prompt) for _, r in generate_load(load_cfg)}
+    # serve_lm's default draft is 16 wide for its 4-head toy model: head dim
+    # 4.  The draft shares the target's 16 heads, so the same head dim takes
+    # d_model 64 (at 16 wide a head would be 1 wide, and RoPE rotates pairs).
+    draft_width = 4 * lm["n_heads"]
+    draft = init_lm_params(lm["vocab_size"], draft_width, lm["n_heads"], 1, seed=1, device=dev)
+    qparams = quantize_state_dict(params, device=dev)
+    tokens = {}
+    for name, p, kw in (("plain", params, {}), ("int8", qparams, dict(quant="int8")),
+                        (f"gamma={gamma}", params, dict(gamma=gamma, draft_params=draft))):
+        eng = ServingEngine(p, **eng_cfg, **kw)
+        rec = _instrument(eng)
+        s = eng.run(generate_load(load_cfg))
+        torch.cuda.synchronize()
+        tokens[name] = {r.rid: list(r.generated) for r in eng.finished}
+        replay_ms = [a.elapsed_time(b) for a, b in rec["replay_events"]]
+        wall_ms = [t * 1e3 for t in rec["decode_s"]]
+        print(f"[engine+] {name}: {s['completed']}/{n_requests} requests, {s['tokens']} tokens "
+              f"in {s['wall_s']} s, {s['tokens_per_s']} tokens/s; TTFT p50 {s['ttft_p50_ms']} "
+              f"ms; ITL p50 {s['itl_p50_ms']} ms; {eng.decode_iterations} decode iterations "
+              f"in {s['steps']} steps, iteration wall median {statistics.median(wall_ms)} ms, "
+              f"graph replay (decode step or speculative round) device median "
+              f"{statistics.median(replay_ms)} ms; graph captures {eng.graph_captures}, "
+              f"replays {eng.graph_replays}; max memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30} GiB; card {card}")
+        if s["completed"] != n_requests or eng.graph_captures != 1 or (
+                eng.graph_replays != eng.decode_iterations):
+            raise SystemExit(f"{name} engine: {s['completed']} of {n_requests} completed, "
+                             f"{eng.graph_captures} captures, {eng.graph_replays} replays in "
+                             f"{eng.decode_iterations} iterations")
+        del eng, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def dense_model(**kw):
+        m = TransformerLM(**lm, dtype=torch.float32, device=dev, attn_impl="dense", **kw)
+        m.load_state_dict(qparams if kw else params)
+        return m
+
+    # The speculative engine against the plain one: identical tokens up to
+    # a first difference where the dense path's top-2 gap is under 1e-3.
+    dense = dense_model()
+    spec_same = 0
+    for rid, want in tokens["plain"].items():
+        got = tokens[f"gamma={gamma}"][rid]
+        j = _first_diff(got, want)
+        spec_same += j
+        if j < len(want):
+            _greedy_rule(dense, torch.tensor([prompts[rid]], device=dev),
+                         torch.tensor([got], device=dev), torch.tensor([want], device=dev),
+                         1e-3, f"speculative engine rid {rid}")
+    total = sum(len(t) for t in tokens["plain"].values())
+    print(f"[engine+] gamma={gamma} vs the engine without a draft: {spec_same} of {total} "
+          f"tokens identical before each request's first difference")
+    del dense
+    # The int8 engine against the int8 dense path (phase 12's rule).
+    dense = dense_model(quant="int8")
+    compared = total = 0
+    for rid in range(n_dense):
+        got = tokens["int8"][rid]
+        want = greedy_generate(dense, torch.tensor([prompts[rid]], device=dev), len(got),
+                               flash_prefill=False)
+        c, _ = _greedy_rule(dense, torch.tensor([prompts[rid]], device=dev),
+                            torch.tensor([got], device=dev), want, 1e-3, f"int8 engine rid {rid}")
+        compared += c
+        total += len(got)
+    print(f"[engine+] int8, first {n_dense} requests against the int8 dense path: {compared} "
+          f"of {total} tokens identical before the first difference")
+    if compared < 0.9 * total:
+        raise SystemExit(f"only {compared} of {total} int8 tokens compared with the dense path")
+    del dense, params, qparams, draft
+
+    os.makedirs("build", exist_ok=True)
+    rc = serve_lm.main([
+        "--vocab-size", str(lm["vocab_size"]), "--d-model", str(lm["d_model"]),
+        "--n-heads", str(lm["n_heads"]), "--n-layers", str(lm["n_layers"]),
+        "--max-batch", "16", "--kv-blocks", str(kv_blocks), "--block-size", "16",
+        "--blocks-per-seq", "64", "--chunk-size", "128", "--max-new-tokens", "64",
+        "--requests", "8", "--quant", "int8", "--gamma", str(gamma),
+        "--draft-d-model", str(draft_width),
+        "--summary-json", "build/serve_lm_variants.json", "--device", str(dev)])
+    with open("build/serve_lm_variants.json") as f:
+        completed = json.load(f)["completed"]
+    print(f"[engine+] serve_lm.main --quant int8 --gamma {gamma}: rc {rc}, {completed}/8 "
+          f"requests completed")
+    if rc != 0 or completed != 8:
+        raise SystemExit(f"serve_lm --quant int8 --gamma {gamma} returned {rc}")
+    launched = [k.launches for k in kernels]
+    print(f"[engine+] kernel launches K1-K5 during phase 19: {launched}")
+    if any(launched):
+        raise SystemExit("the serving engine launched a kernel it should not reach")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1713,17 +2213,35 @@ def main() -> int:
     k4_dp, k5_dp = dp_phase(card)
     print(f"[time] phase 16 took {time.perf_counter() - t0} s")
 
+    # 17. lm_pretrain --fused-ce at full width
+    t0 = time.perf_counter()
+    k1_ce, k2_ce, k3_ce = fused_ce_phase(dev, card, cfg)
+    print(f"[time] phase 17 took {time.perf_counter() - t0} s")
+
+    # 18. int8 weight-only generate and speculative decoding
+    t0 = time.perf_counter()
+    k1_int8 = generate_variants_phase(dev, card, cfg)
+    print(f"[time] phase 18 took {time.perf_counter() - t0} s")
+
+    # 19. the serving engine at int8 and with a speculative draft
+    t0 = time.perf_counter()
+    engine_variants_phase(dev, card, cfg)
+    print(f"[time] phase 19 took {time.perf_counter() - t0} s")
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
         source="pytorch_distributed_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="pytorch_distributed_tpu/ops/flash_attention.py:37",
-        launches=serve_launches + train_launches[0] + k1 + k1_gen, max_abs_err=path["err"],
+        launches=serve_launches + train_launches[0] + k1 + k1_gen + k1_ce + k1_int8,
+        max_abs_err=path["err"],
         ms=path["ms"], plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
         bound_by=path["bound_by"], library_ms=path["library_ms"])]
     bpath = bwd["path"]
-    for name, key, line, n in (("flash_attention_bwd_dq", "dq", 185, train_launches[1] + k2),
-                               ("flash_attention_bwd_dkv", "dkv", 214, train_launches[2] + k3)):
+    for name, key, line, n in (("flash_attention_bwd_dq", "dq", 185,
+                                train_launches[1] + k2 + k2_ce),
+                               ("flash_attention_bwd_dkv", "dkv", 214,
+                                train_launches[2] + k3 + k3_ce)):
         kernels.append(dict(
             name=name, route="cuda",
             source="pytorch_distributed_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1742,7 +2260,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-16 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-19 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

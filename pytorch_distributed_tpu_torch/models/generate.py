@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from pytorch_distributed_tpu_torch.models.quant import quantize_lm
 from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
 from pytorch_distributed_tpu_torch.ops.flash_attention import pick_attention_impl
 
@@ -51,19 +52,23 @@ def filter_logits(logits: torch.Tensor, temperature: float, top_k: int,
 @torch.no_grad()
 def generate(model: TransformerLM, prompt: torch.Tensor, max_new_tokens: int,
              *, temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
-             seed: int = 0, flash_prefill: Optional[bool] = None
-             ) -> torch.Tensor:
+             seed: int = 0, flash_prefill: Optional[bool] = None,
+             quant: str = "") -> torch.Tensor:
     """Decode ``max_new_tokens`` continuations of ``prompt [B, P]``.
 
     ``temperature=0`` is greedy argmax; ``temperature>0`` samples from
     softmax(logits/T) truncated to the ``top_k`` most likely tokens and/or
     the nucleus holding ``top_p`` mass (k first), with a ``torch.Generator``
     seeded from ``seed``.  ``flash_prefill=None`` takes the flash kernel for
-    the prompt where ``pick_attention_impl`` picks it.  Returns
+    the prompt where ``pick_attention_impl`` picks it.  ``quant="int8"``
+    decodes with the int8 weight-only twin of a full-precision ``model``
+    (``models/quant.py``; a quantized model is used as it is).  Returns
     ``[B, max_new_tokens]`` int32 on the model's device.
     """
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if quant and not model.quant:
+        model = quantize_lm(model)
     device = model.device
     prompt = torch.as_tensor(prompt, device=device)
     B, P = prompt.shape

@@ -23,8 +23,8 @@ wide and ResNeXt variants) with the JAX model's choices:
 
 ``set_bn_group(group)`` threads a ``torch.distributed`` process group into
 every BatchNorm (fused or not): training-mode statistics then cover the
-global batch of its ranks, the JAX GSPMD step's BatchNorm.  The
-``--sync-bn`` flag (``bn_axis_name``) is ROADMAP.md item A19.
+global batch of its ranks: the JAX GSPMD step's BatchNorm, and under
+explicit collectives the ``--sync-bn`` flag (the JAX ``bn_axis_name``).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pytorch_distributed_tpu_torch.ops.fused_bn import SYNC_BN_ITEM, FusedBatchNormAct
+from pytorch_distributed_tpu_torch.ops.fused_bn import FusedBatchNormAct
 from pytorch_distributed_tpu_torch.ops.fused_conv_bn import conv2d_nhwc, conv_bn
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
@@ -227,10 +227,8 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int], block_cls, num_classes: int = 1000,
                  num_filters: int = 64, groups: int = 1, base_width: int = 64,
                  dtype: torch.dtype = torch.float32, stem: str = "conv7",
-                 fused_convbn: bool = False, bn_axis_name=None, device="cuda"):
+                 fused_convbn: bool = False, device="cuda"):
         super().__init__()
-        if bn_axis_name is not None:
-            raise NotImplementedError(f"SyncBN is not ported: ROADMAP.md item {SYNC_BN_ITEM}")
         device = resolve_device(device)
         self.dtype = dtype
         conv = functools.partial(Conv2d, dtype=dtype, device=device)

@@ -17,10 +17,15 @@ compute dtype.  The numerics follow the flax modules:
 ``attn_impl`` ("auto" | "flash" | "dense") picks the attention of the
 no-cache forward, as the JAX module's field does; flash goes through
 ``flash_attention_fn``, which carries attention's gradient (K2, K3).
+``quant="int8"`` makes every block's ``qkv``, ``proj``, ``fc1`` and ``fc2``
+a ``models/quant.py`` ``QuantDense`` (int8 weights, f32 scales), in decode
+mode and in the no-cache forward alike; the embedding, tied head and norms
+stay full precision.  ``return_hidden`` gives the pre-head states for the
+fused tied-head loss (``ops/fused_ce.py``).
 
 The single-device dense and flash paths and the KV-cached decode path with
-flash prefill are ported.  MoE, ring / all-to-all sequence parallelism,
-remat and int8 weights are still to port.
+flash prefill are ported.  MoE, ring / all-to-all sequence parallelism and
+the pipeline's remat are still to port (ROADMAP.md item A10).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pytorch_distributed_tpu_torch.models.quant import QuantDense, block_linear, check_quant
 from pytorch_distributed_tpu_torch.ops.flash_attention import (
     ATTN_IMPLS,
     flash_attention,
@@ -46,9 +52,12 @@ from pytorch_distributed_tpu_torch.utils.device import resolve_device
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
 
 
-def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.Dense`` with ``dtype``: input, kernel and bias cast to the
-    compute dtype at use (no-ops when the weights are kept in it)."""
+    compute dtype at use (no-ops when the weights are kept in it); a
+    ``QuantDense`` computes in its own dtype."""
+    if isinstance(layer, QuantDense):
+        return layer(x)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -82,15 +91,13 @@ class KVCache:
 
 class SelfAttention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
-                 device, param_dtype: torch.dtype, attn_impl: str):
+                 device, param_dtype: torch.dtype, attn_impl: str, quant: str = ""):
         super().__init__()
         self.n_heads = n_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
-        self.qkv = nn.Linear(d_model, 3 * d_model, bias=False,
-                             dtype=param_dtype, device=device)
-        self.proj = nn.Linear(d_model, d_model, bias=False, dtype=param_dtype,
-                              device=device)
+        self.qkv = block_linear(quant, d_model, 3 * d_model, False, dtype, param_dtype, device)
+        self.proj = block_linear(quant, d_model, d_model, False, dtype, param_dtype, device)
 
     def forward(self, x: torch.Tensor, cache: Optional[KVCache] = None,
                 flash_prefill: bool = False) -> torch.Tensor:
@@ -137,17 +144,15 @@ class SelfAttention(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
-                 device, param_dtype: torch.dtype, attn_impl: str):
+                 device, param_dtype: torch.dtype, attn_impl: str, quant: str = ""):
         super().__init__()
         self.dtype = dtype
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.attn = SelfAttention(d_model, n_heads, dtype, device, param_dtype,
-                                  attn_impl)
+                                  attn_impl, quant)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.fc1 = nn.Linear(d_model, 4 * d_model, dtype=param_dtype,
-                             device=device)
-        self.fc2 = nn.Linear(4 * d_model, d_model, dtype=param_dtype,
-                             device=device)
+        self.fc1 = block_linear(quant, d_model, 4 * d_model, True, dtype, param_dtype, device)
+        self.fc2 = block_linear(quant, 4 * d_model, d_model, True, dtype, param_dtype, device)
 
     def forward(self, x: torch.Tensor, cache: Optional[KVCache] = None,
                 flash_prefill: bool = False) -> torch.Tensor:
@@ -157,7 +162,8 @@ class Block(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Next-token LM: ``forward(tokens [B, L]) -> f32 logits [B, L, vocab]``.
+    """Next-token LM: ``forward(tokens [B, L]) -> f32 logits [B, L, vocab]``
+    (``return_hidden``: the f32 ``[B, L, d_model]`` states before the head).
 
     With ``cache`` (from ``new_cache``) the call runs in decode mode and
     advances the caches in place; ``flash_prefill`` then sends a multi-token
@@ -166,19 +172,25 @@ class TransformerLM(nn.Module):
 
     def __init__(self, vocab_size: int = 32000, d_model: int = 512,
                  n_heads: int = 8, n_layers: int = 8, dtype=torch.float32,
-                 device="cuda", param_dtype=None, attn_impl: str = "auto"):
+                 device="cuda", param_dtype=None, attn_impl: str = "auto",
+                 quant: str = ""):
         super().__init__()
         device = resolve_device(device)
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+        self.quant = check_quant(quant)
         self.dtype = dtype
         param_dtype = param_dtype or dtype
+        # The constructor's arguments, to build a twin (models/quant.py).
+        self.config = dict(vocab_size=vocab_size, d_model=d_model, n_heads=n_heads,
+                           n_layers=n_layers, dtype=dtype, device=device,
+                           param_dtype=param_dtype, attn_impl=attn_impl, quant=quant)
         self.n_heads = n_heads
         self.head_dim = d_model // n_heads
         self.embed = nn.Embedding(vocab_size, d_model, dtype=param_dtype,
                                   device=device)
         self.blocks = nn.ModuleList(
-            Block(d_model, n_heads, dtype, device, param_dtype, attn_impl)
+            Block(d_model, n_heads, dtype, device, param_dtype, attn_impl, quant)
             for _ in range(n_layers))
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
 
@@ -188,13 +200,17 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[List[KVCache]] = None,
-                flash_prefill: bool = False) -> torch.Tensor:
+                flash_prefill: bool = False, return_hidden: bool = False) -> torch.Tensor:
         if cache is not None and len(cache) != len(self.blocks):
             raise ValueError(f"{len(cache)} caches for {len(self.blocks)} blocks")
         x = self.embed(tokens).to(self.dtype)
         for i, blk in enumerate(self.blocks):
             x = blk(x, None if cache is None else cache[i], flash_prefill)
         x = self.ln_f(x.float())
+        if return_hidden:
+            # The f32 pre-head hidden states, for the fused tied-head loss
+            # (ops/fused_ce.py): the [B, L, vocab] logits never exist.
+            return x
         # Tied head, multiplied in the module dtype like flax's embed.attend.
         return (x.to(self.dtype) @ self.embed.weight.to(self.dtype).T).float()
 

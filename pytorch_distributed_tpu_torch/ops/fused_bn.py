@@ -23,19 +23,17 @@ under GSPMD: the forward averages the one-pass moments over equal shards
 (the JAX ``axis_name`` path's ``pmean``, ``:52-54``) and the backward sums
 dbeta, dgamma and the element count over the ranks before forming dx
 (``:108-111``); the returned dgamma and dbeta stay this rank's sums, for the
-step's gradient all-reduce.  The ``--sync-bn`` flag (the JAX ``axis_name``
-under explicit collectives) is ROADMAP.md item A19.
+step's gradient all-reduce.  The same group gives ``--sync-bn`` (the JAX
+``axis_name`` under explicit collectives): the explicit step sets it too.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
-
-SYNC_BN_ITEM = "A19 (--sync-bn: cross-replica BatchNorm statistics)"
 
 
 def _axes(y: torch.Tensor) -> Tuple[int, ...]:
@@ -130,12 +128,10 @@ class _BNAct(torch.autograd.Function):
 
 
 def bn_act(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5,
-           relu: bool = False, axis_name: Optional[str] = None, group=None):
+           relu: bool = False, group=None):
     """``(o, mean, var)`` of the batch-normalised ``y [..., C]`` (+ReLU), the
-    JAX ``_bn_act``; ``group``: statistics over the ranks' global batch.
-    ``axis_name`` (the ``--sync-bn`` flag) raises: not ported."""
-    if axis_name is not None:
-        raise NotImplementedError(f"SyncBN is not ported: ROADMAP.md item {SYNC_BN_ITEM}")
+    JAX ``_bn_act``; ``group``: statistics over the ranks' global batch (the
+    JAX ``axis_name``)."""
     return _BNAct.apply(y, gamma, beta, eps, relu, group)
 
 

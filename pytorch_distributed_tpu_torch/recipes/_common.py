@@ -48,9 +48,11 @@ def run_recipe(description: str, argv=None, precision_default: Optional[str] = N
     ctx = initialize(device=cfg.device) if bootstrap else DistContext(0, 1, None)
     try:
         trainer = Trainer(cfg, ctx, explicit_collectives=explicit_collectives)
-    except NotImplementedError as e:  # an arch or layer not ported yet
+    except BaseException as e:
         shutdown(ctx)
-        raise SystemExit(str(e)) from e
+        if isinstance(e, NotImplementedError):  # an arch or layer not ported yet
+            raise SystemExit(str(e)) from e
+        raise
     trainer.fit()
     return trainer
 

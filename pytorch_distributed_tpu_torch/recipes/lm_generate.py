@@ -13,9 +13,15 @@ plain versions of the kernels).  With a byte vocab (``--vocab 256``)
     python -m pytorch_distributed_tpu_torch.recipes.lm_generate --random-init \
         --prompt-tokens 1,2,3 -n 8
 
-``--quant``, ``--tp`` and ``--spec-draft`` are parsed but not ported yet:
-each exits with the ROADMAP item that will port it.  Orbax checkpoint
-directories exit too: orbax imports JAX.
+``--quant int8`` decodes with int8 weight-only block kernels, quantized
+after ``--resume`` (``models/quant.py``); the prompt still prefills through
+the flash kernel where it is picked.  ``--spec-draft PATH|random`` decodes
+by speculation (``models/speculative.py``) with a draft of ``--spec-*``
+width (JAX defaults: a quarter of the target's), loaded from an
+``lm_pretrain`` checkpoint or random, and prints the JAX stats line.
+
+``--tp`` is parsed but not ported yet: it exits with the ROADMAP item that
+will port it.  Orbax checkpoint directories exit too: orbax imports JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.models.generate import generate
+from pytorch_distributed_tpu_torch.models.speculative import speculative_generate
 from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
 from pytorch_distributed_tpu_torch.train.checkpoint import load_checkpoint
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
@@ -33,8 +40,6 @@ from pytorch_distributed_tpu_torch.utils.device import resolve_device
 # Flags parsed for the JAX recipe's surface, each with the ROADMAP item
 # (queue A) that will port it.
 NOT_PORTED = {
-    "quant": "A5 (int8 weight-only serving, --quant)",
-    "spec_draft": "A6 (speculative decoding, --spec-draft)",
     "tp": "A7 (model-parallel decode, --tp)",
 }
 
@@ -65,13 +70,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp", type=int, default=1,
                    help="model-parallel decode (not ported yet)")
     p.add_argument("--quant", choices=("", "int8"), default="",
-                   help="int8 weight-only serving (not ported yet)")
+                   help="int8 = weight-only quantized block kernels")
     p.add_argument("--spec-draft", default="",
-                   help="speculative decoding draft (not ported yet)")
-    p.add_argument("--spec-d-model", type=int, default=0)
-    p.add_argument("--spec-n-heads", type=int, default=0)
-    p.add_argument("--spec-n-layers", type=int, default=0)
-    p.add_argument("--spec-gamma", type=int, default=4)
+                   help="enable speculative decoding: draft checkpoint "
+                        "path, or 'random' for a fresh-init draft (smoke)")
+    p.add_argument("--spec-d-model", type=int, default=0,
+                   help="draft d_model (default: max(32, target // 4))")
+    p.add_argument("--spec-n-heads", type=int, default=0,
+                   help="draft n_heads (default: max(1, target // 4))")
+    p.add_argument("--spec-n-layers", type=int, default=0,
+                   help="draft n_layers (default: max(1, target // 4))")
+    p.add_argument("--spec-gamma", type=int, default=4,
+                   help="draft tokens proposed per target scoring pass")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p
@@ -93,8 +103,19 @@ def _encode_prompt(args) -> np.ndarray:
     return np.asarray(toks, np.int32)[None, :]
 
 
+def _load(path: str, model) -> dict:
+    """``load_checkpoint`` into ``model``; returns the file's metadata."""
+    try:
+        return load_checkpoint(path, model)[1]
+    except NotImplementedError as e:  # an orbax checkpoint directory
+        raise SystemExit(str(e)) from e
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.spec_draft and args.tp > 1:
+        raise SystemExit("--spec-draft is batch-1 single-device "
+                         "serving; it does not compose with --tp")
     for dest, item in NOT_PORTED.items():
         if getattr(args, dest) not in ("", 1):
             raise SystemExit(f"--{dest.replace('_', '-')} is not ported to the "
@@ -103,22 +124,42 @@ def main(argv=None) -> int:
         raise SystemExit("provide --resume CHECKPOINT (or --random-init)")
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+
+    # f32 weights when they will be quantized: the scales come from the
+    # checkpoint's own numbers, as in the JAX recipe.
     model = TransformerLM(vocab_size=args.vocab, d_model=args.d_model,
-                          n_heads=args.n_heads, n_layers=args.n_layers,
-                          dtype=dtype, device=device)
+                          n_heads=args.n_heads, n_layers=args.n_layers, dtype=dtype,
+                          device=device, param_dtype=torch.float32 if args.quant else None)
     model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
     if args.resume:
-        try:
-            _, meta = load_checkpoint(args.resume, model)
-        except NotImplementedError as e:  # an orbax checkpoint directory
-            raise SystemExit(str(e)) from e
+        meta = _load(args.resume, model)
         print(f"loaded {args.resume} (epoch {meta.get('epoch')}, "
               f"arch {meta.get('arch') or 'transformer_lm'})")
 
     prompt = torch.from_numpy(_encode_prompt(args)).to(device)
-    out = generate(model, prompt, args.max_new_tokens,
-                   temperature=args.temperature, top_k=args.top_k,
-                   top_p=args.top_p, seed=args.seed)
+    if args.spec_draft:
+        draft = TransformerLM(
+            vocab_size=args.vocab,
+            d_model=args.spec_d_model or max(32, args.d_model // 4),
+            n_heads=args.spec_n_heads or max(1, args.n_heads // 4),
+            n_layers=args.spec_n_layers or max(1, args.n_layers // 4),
+            dtype=dtype, device=device)
+        draft.init_weights(torch.Generator(device=device).manual_seed(args.seed + 1))
+        if args.spec_draft != "random":
+            meta = _load(args.spec_draft, draft)
+            print(f"loaded draft {args.spec_draft} (epoch {meta.get('epoch')})")
+        out, stats = speculative_generate(
+            model, draft, prompt, args.max_new_tokens, gamma=args.spec_gamma,
+            temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+            seed=args.seed, quant=args.quant)
+        print(f"speculative: {stats['target_passes']} target passes for "
+              f"{stats['tokens']} tokens "
+              f"({stats['tokens_per_target_pass']:.2f} tok/pass, "
+              f"mean accepted {stats['mean_accepted']:.2f}/{args.spec_gamma})")
+    else:
+        out = generate(model, prompt, args.max_new_tokens,
+                       temperature=args.temperature, top_k=args.top_k,
+                       top_p=args.top_p, seed=args.seed, quant=args.quant)
     toks = out[0].tolist()
     print("tokens:", toks)
     if args.vocab >= 256 and args.prompt:

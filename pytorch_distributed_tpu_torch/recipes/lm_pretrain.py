@@ -16,12 +16,18 @@ at its exact step.
     python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --device cpu \\
         --vocab 64 --d-model 32 --n-heads 4 --n-layers 1 --seq-len 32 -b 4 --steps 5
 
+``--fused-ce N`` computes the loss through the fused tied-head
+cross-entropy (``ops/fused_ce.py``): the ``[B, L, vocab]`` logits never
+exist at once.
+
 The flag surface is the JAX recipe's plus ``--device`` (default ``cuda``).
-Every flag of a layer not ported yet (parallel layouts, fused CE, remat,
-fault tolerance, observability) is parsed, and a value other
-than its default exits naming the ROADMAP item that will port it.  The JAX
-recipe's SIGTERM preemption guard is one of them: here SIGTERM ends the
-process.
+Its argument checks run first, in its order (``--remat`` applies to the
+pipeline stages only, so without ``--pp`` it exits with the JAX message).
+Every flag of a layer not ported yet (parallel layouts, the pipeline and
+its remat among them, fault tolerance, observability) is parsed, and a
+value other than its default exits naming the ROADMAP item that will port
+it.  The JAX recipe's SIGTERM preemption guard is one of them: here
+SIGTERM ends the process.
 """
 
 from __future__ import annotations
@@ -48,9 +54,6 @@ _OBS = "A12 (observability: metrics, heartbeats, ledgers, alerts)"
 # Flags parsed for the JAX recipe's surface but not ported, each with the
 # ROADMAP item (queue A) that will port it.
 NOT_PORTED = {
-    "fused_ce": "A14 (fused tied-head cross-entropy, --fused-ce)",
-    "fused_ce_mode": "A14 (fused tied-head cross-entropy, --fused-ce)",
-    "remat": "A15 (rematerialisation, --remat)",
     **dict.fromkeys(("tp", "sp", "sp_impl", "ep", "moe_top_k", "pp",
                      "microbatches", "schedule", "pp_virtual", "fsdp"), _PARALLEL),
     **dict.fromkeys(("zero", "grad_compress", "overlap", "bucket_mb"), _GRAD_COMM),
@@ -81,10 +84,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clip-grad-norm", type=float, default=0.0,
                    help=">0: global-norm gradient clipping")
     p.add_argument("--fused-ce", type=int, default=0, metavar="CHUNKS",
-                   help="fused tied-head+CE loss (not ported yet)")
+                   help="fused tied-head+CE loss in CHUNKS row blocks "
+                        "(ops/fused_ce.py): the [B,L,vocab] logits tensor "
+                        "never materializes; 0 = unfused")
     p.add_argument("--fused-ce-mode", default="auto",
                    choices=("auto", "replicated", "dp", "tp"),
-                   dest="fused_ce_mode", help="not ported yet")
+                   dest="fused_ce_mode",
+                   help="fused-CE sharding variant (one device: auto = "
+                        "replicated; dp and tp need a mesh, ROADMAP A10)")
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient accumulation over strided microbatches")
     p.add_argument("--tp", type=int, default=1, help="not ported yet")
@@ -99,7 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default="gpipe", help="not ported yet")
     p.add_argument("--pp-virtual", type=int, default=2, dest="pp_virtual",
                    help="not ported yet")
-    p.add_argument("--remat", action="store_true", help="not ported yet")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize the pipeline stages (requires --pp > 1; "
+                        "not ported yet)")
     p.add_argument("--fsdp", action="store_true", help="not ported yet")
     p.add_argument("--precision", choices=("fp32", "bf16"), default="bf16",
                    help="compute dtype; weights stay f32")
@@ -183,18 +192,55 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def check_args(args) -> None:
+    """The JAX recipe's checks of its arguments, in its order and words
+    (those that need no device count)."""
+    if args.ep > 1 and (args.tp > 1 or args.sp > 1 or args.pp > 1):
+        raise SystemExit("--ep is exclusive (MoE model variant); "
+                         "--tp composes with --sp or --pp")
+    if args.warmup_steps >= args.steps and args.warmup_steps > 0:
+        raise SystemExit(f"--warmup-steps {args.warmup_steps} must be < "
+                         f"--steps {args.steps} (no room for cosine decay)")
+    if args.sp > 1 and args.seq_len % args.sp:
+        raise SystemExit(f"--seq-len {args.seq_len} not divisible by "
+                         f"--sp {args.sp}")
+    if args.schedule in ("1f1b", "interleaved") and args.pp <= 1:
+        raise SystemExit(f"--schedule {args.schedule} requires --pp > 1")
+    if args.schedule in ("1f1b", "interleaved") and (args.tp > 1
+                                                     or args.sp > 1):
+        raise SystemExit(f"--schedule {args.schedule} supports plain "
+                         "stages; use gpipe for TP/SP-in-stage")
+    if args.schedule == "interleaved":
+        micro = args.microbatches or args.pp
+        if micro % args.pp:
+            raise SystemExit(f"--schedule interleaved needs --microbatches "
+                             f"{micro} divisible by --pp {args.pp}")
+        if args.n_layers % (args.pp * args.pp_virtual):
+            raise SystemExit(f"--n-layers {args.n_layers} not divisible by "
+                             f"pp*V = {args.pp * args.pp_virtual}")
+    if args.remat and args.pp <= 1:
+        raise SystemExit("--remat applies to the pipeline stages "
+                         "(requires --pp > 1)")
+    if args.fused_ce and args.pp > 1:
+        raise SystemExit("--fused-ce applies to the non-pipelined loss "
+                         "path (the pipeline schedules own their loss "
+                         "head); drop --pp or --fused-ce")
+    if args.accum_steps > 1 and args.pp > 1:
+        raise SystemExit("--accum-steps with --pp is redundant: the pipeline "
+                         "schedule already microbatches; raise "
+                         "--microbatches instead")
+
+
 def run(argv=None) -> LMTrainer:
     """Parse ``argv``, build the model and data, train, optionally decode;
     returns the trainer."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    check_args(args)
     for dest, item in NOT_PORTED.items():
         if getattr(args, dest) != parser.get_default(dest):
             raise SystemExit(f"--{dest.replace('_', '-')} is not ported to the "
                              f"PyTorch package yet: ROADMAP.md item {item}")
-    if args.warmup_steps >= args.steps and args.warmup_steps > 0:
-        raise SystemExit(f"--warmup-steps {args.warmup_steps} must be < "
-                         f"--steps {args.steps} (no room for cosine decay)")
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     if args.text_glob:
@@ -238,6 +284,8 @@ def run(argv=None) -> LMTrainer:
                             eval_batches=args.eval_batches, lr_schedule=schedule,
                             clip_grad_norm=args.clip_grad_norm,
                             accum_steps=args.accum_steps,
+                            fused_ce_chunks=args.fused_ce,
+                            fused_ce_mode=args.fused_ce_mode,
                             checkpoint_dir=args.checkpoint_dir,
                             save_steps=args.save_steps, resume=args.resume)
     except NotImplementedError as e:  # an orbax checkpoint directory

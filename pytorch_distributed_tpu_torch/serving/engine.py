@@ -16,9 +16,20 @@ Prefill runs eagerly, one ``[1, chunk_size]`` chunk at a time.  Sampling
 at ``temperature > 0`` happens outside the graph, from its f32 logits,
 with a ``torch.Generator`` seeded from ``seed``.
 
+The layers underneath compose as in the JAX engine: ``quant="int8"`` runs
+the int8 weight-only paged model (``params`` from
+``models/quant.py::quantize_state_dict``), and greedy speculative decoding
+(``gamma > 0`` with ``draft_params``) replaces the decode step with one
+round over the paged state: gamma+1 draft micro-steps (the last only
+commits the final draft token's k/v), one target verification over
+``[t_last, d_1..d_gamma]`` and the acceptance on the device, ``-1`` past
+the accepted prefix and its correction.  The round is captured as the
+graph in place of the decode step, so a round is still one replay and one
+host sync.  Outputs equal the target's own greedy stream, whatever the
+draft.
+
 Not ported yet, each refused with the ROADMAP.md item that will port it:
-speculative decoding (``gamma > 0``, A6), int8 weights (``quant``, A5),
-and the ``watchdog``, ``chaos`` and ``trace`` hooks (A11, A12).
+the ``watchdog``, ``chaos`` and ``trace`` hooks (A11, A12).
 """
 
 from __future__ import annotations
@@ -47,8 +58,6 @@ MODES = ("continuous", "static")
 # Engine features of the JAX package not ported yet, each with the ROADMAP
 # item (queue A) that will port it.
 NOT_PORTED = {
-    "gamma": "A6 (speculative decoding in the engine)",
-    "quant": "A5 (int8 weight-only serving in the engine)",
     "watchdog": "A12 (observability: the recompile watchdog)",
     "chaos": "A11 (fault tolerance: chaos injection)",
     "trace": "A12 (observability: per-request tracing)",
@@ -66,8 +75,11 @@ class ServingEngine:
     """Continuous-batching engine: paged KV + scheduler + a graphed decode.
 
     ``params`` is a ``TransformerLM`` state dict (``init_lm_params``, or
-    ``utils/convert.py::lm_state_dict_from_jax``); the engine runs it in
-    f32 on ``device`` (``cuda`` unless the caller passes ``cpu``).
+    ``utils/convert.py::lm_state_dict_from_jax``; ``quantize_state_dict``'s
+    under ``quant="int8"``); the engine runs it in f32 on ``device``
+    (``cuda`` unless the caller passes ``cpu``).  ``draft_params``: the
+    state dict of the speculative draft (its width and depth are read from
+    it; it shares ``n_heads`` and the block tables), used when ``gamma > 0``.
 
     ``mode="static"`` is the naive wave-batching baseline: a new wave is
     admitted only once every slot has drained, so short sequences idle
@@ -94,8 +106,12 @@ class ServingEngine:
                  seed: int = 0, device="cuda"):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; expected {MODES}")
-        asked = {"gamma": gamma > 0 or draft_params is not None, "quant": bool(quant),
-                 "watchdog": watchdog is not None, "chaos": chaos is not None,
+        if gamma > 0 and temperature > 0:
+            raise ValueError("speculative serving is greedy-only: "
+                             "gamma > 0 requires temperature <= 0")
+        if gamma > 0 and draft_params is None:
+            raise ValueError("gamma > 0 requires draft_params")
+        asked = {"watchdog": watchdog is not None, "chaos": chaos is not None,
                  "trace": trace is not None}
         for name, on in asked.items():
             if on:
@@ -103,6 +119,7 @@ class ServingEngine:
                                  f"ROADMAP.md item {NOT_PORTED[name]}")
         self.device = resolve_device(device)
         self.mode = mode
+        self.gamma = int(gamma)
         self.max_batch = int(max_batch)
         self.chunk_size = int(chunk_size)
         self.temperature = float(temperature)
@@ -117,13 +134,24 @@ class ServingEngine:
 
         self.model = PagedTransformerLM(
             vocab_size=vocab_size, d_model=d_model, n_heads=n_heads,
-            n_layers=n_layers, block_size=block_size, device=self.device)
+            n_layers=n_layers, block_size=block_size, quant=quant, device=self.device)
         self.model.load_state_dict(params, strict=True)
         self.model.requires_grad_(False)
         self.pool = BlockPool(kv_blocks, block_size, blocks_per_seq)
         self.pk, self.pv = init_pools(n_layers, kv_blocks, block_size, n_heads,
                                       d_model // n_heads, device=self.device)
         self.sched = Scheduler(max_batch, policy=policy)
+        self.draft = None
+        if self.gamma > 0:
+            d_layers = len({k.split(".")[1] for k in draft_params if k.startswith("blocks.")})
+            d_model_d = int(draft_params["embed.weight"].shape[1])
+            self.draft = PagedTransformerLM(
+                vocab_size=vocab_size, d_model=d_model_d, n_heads=n_heads,
+                n_layers=d_layers, block_size=block_size, device=self.device)
+            self.draft.load_state_dict(draft_params, strict=True)
+            self.draft.requires_grad_(False)
+            self.dpk, self.dpv = init_pools(d_layers, kv_blocks, block_size, n_heads,
+                                            d_model_d // n_heads, device=self.device)
 
         # per-slot device-batch state (host mirrors)
         self._offsets = np.zeros(self.max_batch, np.int32)
@@ -155,10 +183,39 @@ class ServingEngine:
     @torch.no_grad()
     def _decode_step(self):
         """tokens [B] fed at positions ``offsets`` -> (f32 logits [B, V],
-        greedy next token [B]); reads only the static input buffers."""
+        greedy next token [B]); with a draft, ``(None, the speculative
+        round's [B, gamma+1] tokens)``.  Reads only the static input
+        buffers."""
+        if self.draft is not None:
+            return None, self._spec_round()
         logits = self.model(self._d_tokens[:, None], self.pk, self.pv, self._d_table,
                             self._d_offsets[:, None])[:, -1, :]
         return logits, torch.argmax(logits, dim=-1)
+
+    def _spec_round(self) -> torch.Tensor:
+        """One greedy speculative round (the JAX ``_make_spec_round``):
+        ``out [B, gamma+1]``, row b the committed tokens of slot b, the
+        accepted draft tokens then the target's correction, -1 after."""
+        gamma, table, offs = self.gamma, self._d_table, self._d_offsets
+        cur = self._d_tokens
+        toks = [cur]
+        for i in range(gamma):
+            logits = self.draft(cur[:, None], self.dpk, self.dpv, table, (offs + i)[:, None])
+            cur = torch.argmax(logits[:, -1, :], dim=-1)
+            toks.append(cur)
+        # extra feed: writes KV(d_gamma); its output is discarded
+        self.draft(cur[:, None], self.dpk, self.dpv, table, (offs + gamma)[:, None])
+        ver = torch.stack(toks, dim=1)                          # [B, gamma+1]
+        L = gamma + 1
+        j = torch.arange(L, device=ver.device)[None, :]
+        logits = self.model(ver, self.pk, self.pv, table, offs[:, None] + j)
+        g = torch.argmax(logits, dim=-1)                        # target greedy
+        p = ver[:, 1:]                                          # draft proposals
+        n_acc = torch.cumprod((g[:, :L - 1] == p).long(), dim=1).sum(dim=1)[:, None]
+        corr = torch.gather(g, 1, n_acc)
+        pfull = torch.nn.functional.pad(p, (0, 1))
+        return torch.where(j < n_acc, pfull,
+                           torch.where(j == n_acc, corr, torch.full_like(pfull, -1)))
 
     def _capture_decode(self) -> None:
         """Warm the step up on a side stream, then capture it once.  The
@@ -201,10 +258,10 @@ class ServingEngine:
     def submit(self, req: Request) -> None:
         cap = self.pool.capacity_tokens
         P = len(req.prompt)
-        limit = cap - P + 1
+        limit = cap - P + 1 - self.gamma
         if P > cap or limit < 1:
             raise ValueError(f"prompt of {P} tokens does not fit a {cap}-token "
-                             "block table")
+                             f"block table (gamma={self.gamma})")
         req.max_new_tokens = min(req.max_new_tokens, limit)
         self.sched.submit(req, now=self._now())
 
@@ -225,8 +282,10 @@ class ServingEngine:
             chunk[0, :valid] = req.prompt[lo:lo + valid]
             chunk[0, valid:] = 0
             pos = torch.arange(lo, lo + C, device=self.device)[None, :]
-            logits = self.model(torch.from_numpy(chunk).to(self.device), self.pk,
-                                self.pv, table, pos)
+            tokens = torch.from_numpy(chunk).to(self.device)
+            logits = self.model(tokens, self.pk, self.pv, table, pos)
+            if self.draft is not None:
+                self.draft(tokens, self.dpk, self.dpv, table, pos)
         last = logits[0, valid - 1]
         tok = torch.argmax(last) if self.temperature <= 0 else self._sample(last)
         seed = int(tok)                  # the prefill's one host sync
@@ -309,6 +368,7 @@ class ServingEngine:
         emitted = 0
         active = list(self.sched.active)
         if active:
+            grow = self.gamma + 1
             live = []
             held = set()
             for slot, req in active:
@@ -316,7 +376,7 @@ class ServingEngine:
                     continue          # evicted by an earlier lane's growth
                 # protect already-validated lanes: a later lane's growth
                 # must never evict a slot this same decode will read.
-                if self._ensure_or_preempt(slot, req.rid, int(self._offsets[slot]) + 1,
+                if self._ensure_or_preempt(slot, req.rid, int(self._offsets[slot]) + grow,
                                            protect=held):
                     live.append((slot, req))
                     held.add(slot)
@@ -345,11 +405,16 @@ class ServingEngine:
         now = self._now()
         emitted = 0
         for slot, req in live:
+            toks = (arr[slot][arr[slot] >= 0].tolist()
+                    if arr.ndim == 2 else [int(arr[slot])])
             gap = now - self._last_emit[slot]
-            self._emit(slot, req, int(arr[slot]), now)
-            self.itl_samples.append(gap)
-            emitted += 1
-            self._offsets[slot] += 1
+            for t in toks:
+                self._emit(slot, req, t, now)
+                self.itl_samples.append(gap / len(toks))
+                emitted += 1
+                if req.done:
+                    break
+            self._offsets[slot] += len(toks)
             self._last[slot] = req.generated[-1]
             self._last_emit[slot] = now
             if req.done:
@@ -363,6 +428,9 @@ class ServingEngine:
         p = torch.from_numpy(perm).to(self.device, torch.int64)
         apply_permutation(self.pk, p)
         apply_permutation(self.pv, p)
+        if self.draft is not None:
+            apply_permutation(self.dpk, p)
+            apply_permutation(self.dpv, p)
         if self.obs is not None:
             self.obs.log_event("serve_defrag", step=self._step,
                                defrags=self.pool.defrags)

@@ -17,7 +17,9 @@ same einsum contractions, f32 logits from the tied head.  ``rope_at`` is
 ``transformer.rope`` with the scalar offset generalised to a per-token
 position matrix; the per-element float math is identical.  The model runs
 in f32 (the JAX engine builds its model without a dtype); TF32 stays off,
-torch's default for matmuls.
+torch's default for matmuls.  ``quant="int8"`` makes each block's ``qkv``,
+``proj``, ``fc1`` and ``fc2`` a ``QuantDense`` (``models/quant.py``), as in
+``TransformerLM``; its state dict is ``quantize_state_dict``'s.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pytorch_distributed_tpu_torch.models.quant import block_linear, check_quant
 from pytorch_distributed_tpu_torch.models.transformer import LN_EPS, dense
 from pytorch_distributed_tpu_torch.serving.kvpool import (
     lookup_blocks,
@@ -54,12 +57,12 @@ def rope_at(x: torch.Tensor, pos: torch.Tensor, base: float = 10000.0) -> torch.
 
 
 class PagedSelfAttention(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, block_size: int, device):
+    def __init__(self, d_model: int, n_heads: int, block_size: int, device, quant: str = ""):
         super().__init__()
         self.n_heads = n_heads
         self.block_size = block_size
-        self.qkv = nn.Linear(d_model, 3 * d_model, bias=False, device=device)
-        self.proj = nn.Linear(d_model, d_model, bias=False, device=device)
+        self.qkv = block_linear(quant, d_model, 3 * d_model, False, F32, F32, device)
+        self.proj = block_linear(quant, d_model, d_model, False, F32, F32, device)
 
     def forward(self, x, pool_k, pool_v, table, pos):
         B, L, C = x.shape
@@ -85,13 +88,13 @@ class PagedSelfAttention(nn.Module):
 
 
 class PagedBlock(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, block_size: int, device):
+    def __init__(self, d_model: int, n_heads: int, block_size: int, device, quant: str = ""):
         super().__init__()
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.attn = PagedSelfAttention(d_model, n_heads, block_size, device)
+        self.attn = PagedSelfAttention(d_model, n_heads, block_size, device, quant)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.fc1 = nn.Linear(d_model, 4 * d_model, device=device)
-        self.fc2 = nn.Linear(4 * d_model, d_model, device=device)
+        self.fc1 = block_linear(quant, d_model, 4 * d_model, True, F32, F32, device)
+        self.fc2 = block_linear(quant, 4 * d_model, d_model, True, F32, F32, device)
 
     def forward(self, x, pool_k, pool_v, table, pos):
         x = x + self.attn(self.ln1(x), pool_k, pool_v, table, pos)
@@ -109,12 +112,13 @@ class PagedTransformerLM(nn.Module):
     hold.  ``table``, ``pos`` and ``tokens`` are int64."""
 
     def __init__(self, vocab_size: int = 64, d_model: int = 32, n_heads: int = 4,
-                 n_layers: int = 1, block_size: int = 16, device="cuda"):
+                 n_layers: int = 1, block_size: int = 16, quant: str = "", device="cuda"):
         super().__init__()
         device = resolve_device(device)
+        check_quant(quant)
         self.embed = nn.Embedding(vocab_size, d_model, device=device)
         self.blocks = nn.ModuleList(
-            PagedBlock(d_model, n_heads, block_size, device) for _ in range(n_layers))
+            PagedBlock(d_model, n_heads, block_size, device, quant) for _ in range(n_layers))
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
 
     def forward(self, tokens, pool_k, pool_v, table, pos):

@@ -14,10 +14,13 @@ the run summary as JSON.  The flags are the JAX script's plus ``--device``
     python -m pytorch_distributed_tpu_torch.serving.serve_lm --device cpu --requests 8
     python -m pytorch_distributed_tpu_torch.serving.serve_lm --mode static ...
 
-``--gamma``, ``--quant``, ``--slo-ttft-ms``, ``--slo-kv-pct`` and
-``--req-trace`` are parsed but not ported yet: each exits with the ROADMAP
-item that will port it.  ``--no-watchdog`` is
-accepted and does nothing.
+``--quant int8`` serves the int8 weight-only model (quantized after
+``--checkpoint``, as the JAX script does); ``--gamma G`` decodes greedily
+by speculation with a seeded random draft of ``--draft-d-model`` and
+``--draft-layers``, one captured round per iteration.
+``--slo-ttft-ms``, ``--slo-kv-pct`` and ``--req-trace`` are parsed but not
+ported yet: each exits with the ROADMAP item that will port it.
+``--no-watchdog`` is accepted and does nothing.
 
 Exit status 0 iff every request completed.
 """
@@ -28,6 +31,7 @@ import argparse
 import json
 import sys
 
+from pytorch_distributed_tpu_torch.models.quant import quantize_state_dict
 from pytorch_distributed_tpu_torch.obs.metrics import MetricsLogger
 from pytorch_distributed_tpu_torch.serving.engine import ServingEngine, init_lm_params
 from pytorch_distributed_tpu_torch.serving.loadgen import LoadConfig, generate_load
@@ -38,8 +42,6 @@ from pytorch_distributed_tpu_torch.utils.device import resolve_device
 # Flags parsed for the JAX script's surface, each with the ROADMAP item
 # (queue A) that will port it, and the value that leaves it off.
 NOT_PORTED = {
-    "gamma": ("A6 (speculative decoding in the engine)", 0),
-    "quant": ("A5 (int8 weight-only serving in the engine)", ""),
     "slo_ttft_ms": ("A12 (observability: live SLO alert rules)", None),
     "slo_kv_pct": ("A12 (observability: live SLO alert rules)", None),
     "req_trace": ("A12 (observability: per-request tracing)", False),
@@ -56,13 +58,14 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--n-heads", type=int, default=4)
     m.add_argument("--n-layers", type=int, default=2)
     m.add_argument("--quant", choices=("", "int8"), default="",
-                   help="int8 weight-only serving (not ported yet)")
+                   help="int8 = weight-only quantized serving "
+                        "(models/quant.py)")
     m.add_argument("--checkpoint", default=None,
                    help="serve real weights from an LM msgpack (an lm_pretrain "
                         "checkpoint or a bare params tree; vocab/d_model/"
                         "n_layers are read from it, --n-heads must match)")
     m.add_argument("--gamma", type=int, default=0,
-                   help="speculative draft length (0 = off; not ported yet)")
+                   help="speculative draft length (0 = off; greedy only)")
     m.add_argument("--draft-d-model", type=int, default=16)
     m.add_argument("--draft-layers", type=int, default=1)
 
@@ -154,6 +157,12 @@ def main(argv=None) -> int:
     else:
         params = init_lm_params(args.vocab_size, args.d_model, args.n_heads,
                                 args.n_layers, seed=args.seed, device=args.device)
+    if args.quant == "int8":
+        params = quantize_state_dict(params, device=resolve_device(args.device))
+    draft = None
+    if args.gamma > 0:
+        draft = init_lm_params(args.vocab_size, args.draft_d_model, args.n_heads,
+                               args.draft_layers, seed=args.seed + 1, device=args.device)
     obs = MetricsLogger(args.metrics_jsonl, flush_every=1)
     eng = ServingEngine(
         params, vocab_size=args.vocab_size, d_model=args.d_model,
@@ -162,10 +171,11 @@ def main(argv=None) -> int:
         block_size=args.block_size, blocks_per_seq=args.blocks_per_seq,
         chunk_size=args.chunk_size, max_new_tokens=args.max_new_tokens,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        quant=args.quant, gamma=args.gamma, draft_params=draft,
         policy=args.policy, mode=args.mode,
         defrag_threshold_pct=args.defrag_threshold_pct,
         obs=obs, seed=args.seed, device=args.device)
-    del params
+    del params, draft
 
     load = generate_load(LoadConfig(
         n_requests=args.requests, rate_rps=args.rate_rps,

@@ -6,11 +6,14 @@ plus ``--device`` (default ``cuda``).
 
 Every flag is parsed.  ``check_ported`` exits naming the ROADMAP item that
 will port a flag whose value differs from its default and whose layer is
-not ported yet: SyncBN (A19), the gradient-communication stack beyond the
-bf16 wire (A9), the fused CE head (A14), fault tolerance beyond the
-in-step ``--nan-guard`` gate and the checkpoints (A11) and observability
-beyond the epoch CSV (A12).  ``--dist-file`` is accepted and unused, as in
-the JAX package (the bootstrap reads the launcher's environment).  ``--ckpt-backend
+not ported yet: the gradient-communication stack beyond the bf16 wire
+(A9), fault tolerance beyond the in-step ``--nan-guard`` gate and the
+checkpoints (A11) and observability beyond the epoch CSV (A12).
+``--dist-file`` is accepted and unused, as in the JAX package (the
+bootstrap reads the launcher's environment).  So are ``--fused-ce`` and
+``--fused-ce-mode``: the LM family's loss head, which the JAX image
+``Trainer`` never reads either.  ``--sync-bn`` is the explicit step's
+cross-replica BatchNorm (``train/trainer.py``).  ``--ckpt-backend
 orbax`` exits too: orbax imports JAX, so the port keeps the msgpack format.
 """
 
@@ -21,19 +24,15 @@ import dataclasses
 from typing import Optional
 
 from pytorch_distributed_tpu_torch import models
-from pytorch_distributed_tpu_torch.ops.fused_bn import SYNC_BN_ITEM as _SYNC_BN
 from pytorch_distributed_tpu_torch.train.checkpoint import ORBAX_MESSAGE
 
 _GRAD_COMM = "A9 (gradient-communication stack: --zero, --grad-compress, --overlap)"
-_FUSED_CE = "A14 (fused tied-head cross-entropy, --fused-ce)"
 _FT = "A11 (fault tolerance: rollback policy, --elastic, the preemption guard)"
 _OBS = "A12 (observability: metrics, heartbeats, profiles, ledgers, alerts)"
 
 # dest -> the ROADMAP item that will port it, for flags not ported yet.
 NOT_PORTED = {
-    "sync_bn": _SYNC_BN,
     **dict.fromkeys(("grad_compress", "zero", "overlap", "bucket_mb"), _GRAD_COMM),
-    **dict.fromkeys(("fused_ce_chunks", "fused_ce_mode"), _FUSED_CE),
     **dict.fromkeys(("ft_rollback_k", "ft_check_every", "ft_lr_backoff",
                      "preempt_signals", "elastic", "min_ranks", "rescale_lr"), _FT),
     **dict.fromkeys(("profile_dir", "profile_epochs", "profile_steps", "telemetry_csv",
@@ -237,10 +236,14 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
         help="fold BN's backward into the stride-1 conv dgrad/wgrad (hand-written "
         "kernels K4 1x1 and K5 3x3); the state_dict is the same either way")
     add("--fused-ce", default=d.fused_ce_chunks, type=int, metavar="CHUNKS",
-        dest="fused_ce_chunks", help=_NOT_PORTED_HELP)
+        dest="fused_ce_chunks", help="LM family: fused tied-head+CE loss in CHUNKS row "
+        "blocks; accepted and unused by the image recipes, as in the JAX package")
     add("--fused-ce-mode", default=d.fused_ce_mode, choices=("auto", "replicated", "dp", "tp"),
-        dest="fused_ce_mode", help=_NOT_PORTED_HELP)
-    add("--sync-bn", action="store_true", dest="sync_bn", help=_NOT_PORTED_HELP)
+        dest="fused_ce_mode", help="LM family: fused-CE sharding variant; accepted and "
+        "unused by the image recipes")
+    add("--sync-bn", action="store_true", dest="sync_bn",
+        help="cross-replica BatchNorm for the explicit-collectives step (horovod_distributed): "
+        "batch moments over every rank's batch; the DDP recipes have it already")
     add("--device", default=d.device, help="cuda (default) or cpu")
     return p
 

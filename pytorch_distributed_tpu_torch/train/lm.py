@@ -5,9 +5,11 @@
   oracle), ``TextFileDataset`` (byte-level LM over files), the step-indexed
   wrap-around batching and ``warmup_cosine_lr``: copies of the JAX module's,
   numpy in and out, so both packages see the same tokens.
-- ``make_lm_train_step``: next-token cross-entropy and accuracy, optional
-  global-norm clipping (the JAX formula) and strided gradient accumulation,
-  then the reference SGD (``train/optim.py``).  The JAX step returns a new
+- ``make_lm_train_step``: next-token cross-entropy and accuracy (through
+  the fused tied-head loss of ``ops/fused_ce.py`` with
+  ``fused_ce_chunks``), optional global-norm clipping (the JAX formula) and
+  strided gradient accumulation, then the reference SGD
+  (``train/optim.py``).  The JAX step returns a new
   train state; this one updates the model's f32 parameters and the
   optimizer's momentum in place.
 - ``make_lm_eval_step``: exact token-weighted sums for the held-out eval.
@@ -16,9 +18,10 @@
   package's format (``train/checkpoint.py``): every ``save_steps`` and at the
   end of ``fit`` into ``checkpoint_dir``, and ``resume`` to the exact step.
 
-Not ported yet (ROADMAP.md queue A): meshes and every parallel layout, the
-fused CE head, the observability and fault-tolerance layers, elastic
-membership and the background feeder thread.
+Not ported yet (ROADMAP.md queue A): meshes and every parallel layout (the
+fused CE head's ``dp`` and ``tp`` variants with them), the observability
+and fault-tolerance layers, elastic membership and the background feeder
+thread.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from pytorch_distributed_tpu_torch.ops.fused_ce import fused_ce_sums, resolve_fused_ce_mode
 from pytorch_distributed_tpu_torch.ops.loss import cross_entropy
 from pytorch_distributed_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from pytorch_distributed_tpu_torch.train.meters import StepMeters
@@ -136,10 +140,22 @@ def _l2_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
 
 
-def lm_loss(model, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def lm_loss(model, tokens: torch.Tensor, fused_ce_chunks: int = 0
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Next-token ``(mean cross-entropy, accuracy)`` of ``tokens [B, L]``:
     logits at positions 0..L-2 against tokens 1..L-1; the accuracy carries
-    no gradient."""
+    no gradient.  ``fused_ce_chunks > 0``: the JAX fused loss path, the
+    pre-head hidden states and the tied embedding, both cast to the compute
+    dtype, through ``fused_ce_sums`` in that many row blocks."""
+    if fused_ce_chunks:
+        hidden = model(tokens, return_hidden=True)
+        h = hidden[:, :-1].reshape(-1, hidden.shape[-1]).to(model.dtype)
+        t = tokens[:, 1:].reshape(-1)
+        w = torch.ones(t.shape, dtype=torch.float32, device=t.device)
+        e = model.embed.weight.to(model.dtype)
+        loss_sum, correct = fused_ce_sums(h, e, t, w, fused_ce_chunks)
+        ntok = h.shape[0]
+        return loss_sum / ntok, correct / ntok
     logits = model(tokens)
     flat = logits[:, :-1].reshape(-1, logits.shape[-1])
     targets = tokens[:, 1:].reshape(-1)
@@ -151,7 +167,8 @@ def lm_loss(model, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
                        clip_grad_norm: float = 0.0, accum_steps: int = 1,
-                       log_norms: bool = False):
+                       log_norms: bool = False, fused_ce_chunks: int = 0,
+                       fused_ce_mode: str = "auto"):
     """``step(tokens [B, L], lr) -> metrics`` for one device.
 
     ``clip_grad_norm > 0`` rescales the gradients by ``min(1, clip /
@@ -160,17 +177,21 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
     ``accum_steps > 1`` splits the batch into strided microbatches (rows j,
     j + accum, ...), sums their gradients and scales the sum by
     ``1/accum``, as the JAX step does.  ``log_norms`` adds ``grad_norm``
-    (before clipping) and ``param_norm`` (after the update).  Metrics are
-    device scalars: ``loss`` and ``acc`` in percent.
+    (before clipping) and ``param_norm`` (after the update).
+    ``fused_ce_chunks > 0`` takes the fused tied-head loss in that many row
+    blocks (``fused_ce_mode``: the JAX variant rule, ``replicated`` on one
+    device).  Metrics are device scalars: ``loss`` and ``acc`` in percent.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if fused_ce_chunks:
+        resolve_fused_ce_mode(fused_ce_mode, model.embed.num_embeddings)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(tokens: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
         if accum_steps == 1:
-            loss, acc = lm_loss(model, tokens)
+            loss, acc = lm_loss(model, tokens, fused_ce_chunks)
             loss.backward()
             loss = loss.detach()
         else:
@@ -180,7 +201,7 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
             micro = tokens.reshape(B // accum_steps, accum_steps, -1).transpose(0, 1)
             loss = acc = 0.0
             for mb in micro:
-                mb_loss, mb_acc = lm_loss(model, mb)
+                mb_loss, mb_acc = lm_loss(model, mb, fused_ce_chunks)
                 mb_loss.backward()  # .grad holds the sum over microbatches
                 loss, acc = loss + mb_loss.detach(), acc + mb_acc
             inv = 1.0 / accum_steps
@@ -231,7 +252,9 @@ class LMTrainer:
 
     ``model`` comes initialised (its weights are the f32 master copy);
     ``lr_schedule`` is an optional ``step -> lr`` callable (e.g.
-    ``warmup_cosine_lr``) overriding the fixed ``lr``.  ``step_times`` and
+    ``warmup_cosine_lr``) overriding the fixed ``lr``; ``fused_ce_chunks``
+    and ``fused_ce_mode`` go to the train step (eval keeps the logits head,
+    as the JAX eval step does).  ``step_times`` and
     ``losses`` collect every step's host seconds as the meters measure
     them and its loss (a device scalar).
 
@@ -245,7 +268,8 @@ class LMTrainer:
     def __init__(self, model, dataset, batch_size: int, lr: float = 1e-2,
                  eval_dataset=None, eval_every: int = 0, eval_batches: int = 8,
                  lr_schedule=None, clip_grad_norm: float = 0.0,
-                 accum_steps: int = 1, momentum: float = 0.9,
+                 accum_steps: int = 1, fused_ce_chunks: int = 0,
+                 fused_ce_mode: str = "auto", momentum: float = 0.9,
                  weight_decay: float = 1e-4, checkpoint_dir: Optional[str] = None,
                  save_steps: int = 0, resume: Optional[str] = None):
         self.model = model
@@ -256,7 +280,9 @@ class LMTrainer:
         self.optimizer = sgd(model.parameters(), lr, momentum, weight_decay)
         self.step_fn = make_lm_train_step(model, self.optimizer,
                                           clip_grad_norm=clip_grad_norm,
-                                          accum_steps=accum_steps)
+                                          accum_steps=accum_steps,
+                                          fused_ce_chunks=fused_ce_chunks,
+                                          fused_ce_mode=fused_ce_mode)
         self.eval_dataset = eval_dataset
         self.eval_every = eval_every
         self.eval_batches = eval_batches

@@ -30,10 +30,13 @@ global batch) the step takes one of the two JAX expressions:
   the global batch.  ``grad_compress="bf16"`` rounds the averaged gradients
   through bf16, as the JAX step's numerics-only emulation does.
 - **explicit twin** (``explicit_collectives``; the JAX ``local_step`` of
-  ``horovod_distributed``): per-rank BatchNorm, the local weighted
-  gradient sums all-reduced by hand (cast to bf16 on the wire under
-  ``grad_compress="bf16"``), divided in f32 by the global count, the BN
-  running statistics averaged over the ranks after the step.
+  ``horovod_distributed``): per-rank BatchNorm, or with ``sync_bn`` (the
+  JAX ``bn_axis_name``) BatchNorm over the global batch through
+  ``set_bn_group``, the local weighted gradient sums all-reduced by hand
+  (cast to bf16 on the wire under ``grad_compress="bf16"``), divided in
+  f32 by the global count, the BN running statistics averaged over the
+  ranks after the step.  The GSPMD twin's BatchNorm is global already, so
+  there, and without a group, ``sync_bn`` changes nothing.
 
 ``int8``/``fp8`` wire formats, ZeRO and bucketed overlap belong to the
 gradient-communication stack (ROADMAP.md item A9).
@@ -110,12 +113,14 @@ def forward_and_sums(model, batch: Batch):
 
 def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 1,
                     log_norms: bool = False, guard_nonfinite: bool = False, group=None,
-                    explicit_collectives: bool = False, grad_compress: Optional[str] = None):
+                    explicit_collectives: bool = False, grad_compress: Optional[str] = None,
+                    sync_bn: bool = False):
     """``step(batch, lr) -> metrics`` (device scalars: ``loss``, ``acc1``,
     ``acc5`` in percent; ``nonfinite`` under ``guard_nonfinite``;
     ``grad_norm`` and ``param_norm`` under ``log_norms``).  ``group``: the
     process group of data parallelism (None: one device), with the GSPMD
-    twin or, under ``explicit_collectives``, the explicit one."""
+    twin or, under ``explicit_collectives``, the explicit one, whose
+    BatchNorm ``sync_bn`` makes global."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if grad_compress not in WIRE_DTYPES:
@@ -127,6 +132,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 
     stats = [b for b in buffers if b.is_floating_point()]
     gspmd = group is not None and not explicit_collectives
     net = data_parallel(model, group) if gspmd else model
+    if sync_bn and explicit_collectives and group is not None:
+        model.set_bn_group(group)
 
     def momentum_buffers() -> List[torch.Tensor]:
         return [optimizer.state.get(p, {}).get("momentum_buffer") for p in params]

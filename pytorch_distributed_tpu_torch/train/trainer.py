@@ -15,11 +15,15 @@ BatchNorm) or the explicit one, eval sums are all-reduced; rank 0 alone
 prints, writes the epoch CSV and saves checkpoints while the others wait
 at a barrier; every rank resumes from the same file.
 
+``--sync-bn`` gives the explicit step (``horovod_distributed``) the
+global-batch BatchNorm the GSPMD twin always has; there, and without a
+process group, it is the JAX package's no-op.  As in the JAX trainer, the
+explicit step refuses it with ``--fused-convbn``.
+
 Not ported yet, each exiting from ``train/config.py`` with its ROADMAP item:
-``--sync-bn`` (A19), the gradient-communication stack beyond the bf16 wire
-(A9), the divergence rollback policy, elastic membership and the preemption
-guard (A11), and the observability layer (A12).  ``--nan-guard`` is ported
-as the in-step gate.
+the gradient-communication stack beyond the bf16 wire (A9), the divergence
+rollback policy, elastic membership and the preemption guard (A11), and the
+observability layer (A12).  ``--nan-guard`` is ported as the in-step gate.
 """
 
 from __future__ import annotations
@@ -81,6 +85,13 @@ class Trainer:
         self.local_batch = cfg.batch_size // cfg.nprocs
         self._build_data()
         dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
+        if cfg.sync_bn and explicit_collectives and cfg.fused_convbn:
+            # The JAX trainer's refusal, kept although K4/K5 here would
+            # take the reduced vectors.
+            raise ValueError(
+                "--sync-bn and --fused-convbn are mutually exclusive: "
+                "the fused conv+BN backward has no cross-replica "
+                "statistics variant; drop one of the flags")
         self.model = models.create_model(cfg.arch, num_classes=cfg.num_classes, dtype=dtype,
                                          stem=cfg.stem, fused_convbn=cfg.fused_convbn,
                                          device=self.device)
@@ -94,7 +105,8 @@ class Trainer:
                                           accum_steps=cfg.accum_steps,
                                           guard_nonfinite=cfg.nan_guard, group=group,
                                           explicit_collectives=explicit_collectives,
-                                          grad_compress=cfg.grad_compress)
+                                          grad_compress=cfg.grad_compress,
+                                          sync_bn=cfg.sync_bn)
         self.eval_step = make_eval_step(self.model, group)
         self.feeder = DeviceFeeder(self.device)
         self.csv = EpochCSVLogger(cfg.epoch_csv if self.primary else None)

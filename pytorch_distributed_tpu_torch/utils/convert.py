@@ -15,6 +15,10 @@ the port's ``state_dict`` straight back:
 - ``ln_f.weight/bias``                  final LayerNorm
 
 flax Dense kernels are stored [in, out]; torch Linear weights are [out, in].
+A tree quantized by ``quantize_lm_params`` (either package's) carries
+``w_q`` int8 [in, out] and ``scale`` f32 [out] in place of a block kernel;
+they become ``...w_q`` int8 [out, in] and ``...scale``, the buffers of the
+port's ``QuantDense``.
 
 ``resnet_state_dict_from_jax`` does the same for a ``ResNet``'s ``params``
 and ``batch_stats`` with torchvision's names, which the JAX package's
@@ -64,6 +68,14 @@ def lm_state_dict_from_jax(params: Mapping, device=None) -> Dict[str, torch.Tens
     def t(x):
         return _t(x, device)
 
+    def kernel(pre, p):
+        if "w_q" in p:  # int8 weight-only (models/quant.py)
+            w_q = torch.from_numpy(np.array(p["w_q"], dtype=np.int8))
+            sd[f"{pre}.w_q"] = w_q.to(device or "cpu").T.contiguous()
+            sd[f"{pre}.scale"] = t(p["scale"])
+        else:
+            sd[f"{pre}.weight"] = t(p["kernel"]).T.contiguous()
+
     sd = {"embed.weight": t(params["embed"]["embedding"])}
     for i, name in enumerate(blocks):
         p, pre = params[name], f"blocks.{i}"
@@ -71,9 +83,9 @@ def lm_state_dict_from_jax(params: Mapping, device=None) -> Dict[str, torch.Tens
             sd[f"{pre}.{ln}.weight"] = t(p[ln]["scale"])
             sd[f"{pre}.{ln}.bias"] = t(p[ln]["bias"])
         for lin in ("qkv", "proj"):
-            sd[f"{pre}.attn.{lin}.weight"] = t(p["attn"][lin]["kernel"]).T.contiguous()
+            kernel(f"{pre}.attn.{lin}", p["attn"][lin])
         for fc in ("fc1", "fc2"):
-            sd[f"{pre}.{fc}.weight"] = t(p[fc]["kernel"]).T.contiguous()
+            kernel(f"{pre}.{fc}", p[fc])
             sd[f"{pre}.{fc}.bias"] = t(p[fc]["bias"])
     sd["ln_f.weight"] = t(params["ln_f"]["scale"])
     sd["ln_f.bias"] = t(params["ln_f"]["bias"])

@@ -68,7 +68,9 @@ CASES = {"gspmd_fused": dict(fused=True, explicit=False, wire=None, accum=2, bat
          "gspmd_bf16": dict(fused=False, explicit=False, wire="bf16", accum=2, batch=32),
          "explicit_bf16": dict(fused=False, explicit=True, wire="bf16", accum=1, batch=8),
          "explicit_bf16_accum": dict(fused=False, explicit=True, wire="bf16", accum=2,
-                                     batch=32)}
+                                     batch=32),
+         "explicit_sync_bn": dict(fused=False, explicit=True, wire=None, accum=1, batch=8,
+                                  sync_bn=True)}
 WIRE_CASES = sorted(k for k, c in CASES.items() if c["wire"])
 
 WORKER = r'''
@@ -95,7 +97,8 @@ for name, case in inp["cases"].items():
     opt = sgd(model.parameters())
     step = make_train_step(model, opt, accum_steps=case["accum"],
                            log_norms=True, guard_nonfinite=True, group=ctx.group,
-                           explicit_collectives=case["explicit"], grad_compress=case["wire"])
+                           explicit_collectives=case["explicit"], grad_compress=case["wire"],
+                           sync_bn=case.get("sync_bn", False))
     metrics, half = [], case["batch"] // 2
     for b, lr in zip(inp["batches"][case["batch"]], inp["lrs"]):
         local = {k: v[half * rank:half * (rank + 1)] for k, v in b.items()}
@@ -140,9 +143,10 @@ def _batches(n=3, batch=8, seed=4):
              "weights": weights} for _ in range(n)]
 
 
-def _jax_run(variables, batches, fused, accum=2, **kw):
+def _jax_run(variables, batches, fused, accum=2, sync_bn=False, **kw):
     mesh = build_mesh(MeshSpec(("data",), (2,)), jax.devices()[:2])
-    jm = jr.ResNet(block_cls=jr.Bottleneck, fused_convbn=fused, **TINY)
+    jm = jr.ResNet(block_cls=jr.Bottleneck, fused_convbn=fused,
+                   bn_axis_name="data" if sync_bn else None, **TINY)
     v = jax.tree_util.tree_map(jnp.asarray, variables)
     state = TrainState.create(v, sgd_init(v["params"]))
     jstep = jax_train_step(jm, mesh, accum_steps=accum, log_norms=True, guard_nonfinite=True,
@@ -181,6 +185,7 @@ def runs(tmp_path_factory):
                               stderr=subprocess.STDOUT, text=True) for r in range(2)]
     try:
         want = {name: _jax_run(variables, batches[c["batch"]], c["fused"], accum=c["accum"],
+                               sync_bn=c.get("sync_bn", False),
                                explicit_collectives=c["explicit"], grad_compress=c["wire"])
                 for name, c in CASES.items()}
         model = tr.ResNet(block_cls=tr.Bottleneck, device="cpu", **TINY)
@@ -218,6 +223,16 @@ def test_gspmd_twin_matches_jax_two_device_step(runs, case):
     for rank in runs["ranks"]:
         _close(rank[case]["metrics"], rank[case]["state"], want["metrics"], want["state"],
                mrtol=1e-4, atol=1e-4, rtol=1e-3)
+
+
+def test_explicit_sync_bn_matches_jax_bn_axis_name(runs):
+    """``--sync-bn`` on the explicit step (f32): BatchNorm over both ranks'
+    batch through ``set_bn_group``, against the JAX explicit step with
+    ``bn_axis_name``; the 3-image-step tolerances, as the GSPMD twin's."""
+    want = runs["want"]["explicit_sync_bn"]
+    for rank in runs["ranks"]:
+        _close(rank["explicit_sync_bn"]["metrics"], rank["explicit_sync_bn"]["state"],
+               want["metrics"], want["state"], mrtol=1e-4, atol=1e-4, rtol=1e-3)
 
 
 def _close_bf16(runs, case):

@@ -95,7 +95,42 @@ def test_module_ema_and_eval_match_jax(relu):
     _close(tm.eval()(torch.tensor(y1)), jeval, 1e-5, "eval output")
 
 
-def test_sync_bn_is_not_ported():
-    y = torch.zeros(2, 3)
-    with pytest.raises(NotImplementedError, match="A19"):
-        bn_act(y, torch.ones(3), torch.zeros(3), axis_name="data")
+def test_sync_bn_group_of_one_matches_the_jax_axis_name(monkeypatch):
+    """``--sync-bn``'s BatchNorm: over a gloo group of one rank the port's
+    ``bn_act(group=...)`` equals the JAX ``_bn_act(axis_name=...)`` over a
+    mapped axis of one (f32, 1e-5), and the port without a group bitwise:
+    every all-reduce of one rank is a copy."""
+    import socket
+
+    from pytorch_distributed_tpu_torch.parallel import initialize, shutdown
+
+    y, gamma, beta, cot = _inputs(4)
+
+    def rank(y_, cot_):
+        (o, mu, var), vjp = jax.vjp(
+            lambda a, g, b: jax_bn_act(a, g, b, EPS, True, axis_name="data"), y_, gamma, beta)
+        return (o, mu, var) + vjp((cot_, jnp.zeros_like(mu), jnp.zeros_like(var)))
+
+    want = [x[0] for x in jax.vmap(rank, axis_name="data")(jnp.asarray(y)[None],
+                                                           jnp.asarray(cot)[None])]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(PTD_TPU_COORDINATOR=f"127.0.0.1:{port}", PTD_TPU_NUM_PROCESSES="1",
+                     PTD_TPU_PROCESS_ID="0").items():
+        monkeypatch.setenv(k, v)
+    ctx = initialize(device="cpu")
+    try:
+        runs = []
+        for group in (ctx.group, None):
+            leaves = [torch.tensor(x, requires_grad=True) for x in (y, gamma, beta)]
+            o, mu, var = bn_act(*leaves, EPS, True, group=group)
+            o.backward(torch.tensor(cot))
+            runs.append([o, mu, var] + [t.grad for t in leaves])
+    finally:
+        shutdown(ctx)
+    synced, local = runs
+    for a, b in zip(synced, local):
+        assert torch.equal(a, b)
+    for got, w, name in zip(synced, want, ("o", "mu", "var", "dy", "dgamma", "dbeta")):
+        _close(got, w, 1e-5 if name in ("o", "mu", "var", "dy") else 1e-4, name)

@@ -228,7 +228,7 @@ def test_recipe_trains_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,reason", [
     (["--zero", "wus"], "ROADMAP.md item A9"), (["--grad-compress", "int8"], "ROADMAP.md item A9"),
-    (["--overlap", "bucketed"], "ROADMAP.md item A9"), (["--sync-bn"], "ROADMAP.md item A19"),
+    (["--overlap", "bucketed"], "ROADMAP.md item A9"), (["--elastic"], "ROADMAP.md item A11"),
     (["--ckpt-backend", "orbax"], "orbax.checkpoint imports JAX"),
     (["--profile-dir", "p"], "ROADMAP.md item A12"),
     (["--ft-rollback-k", "5"], "ROADMAP.md item A11"),
@@ -242,6 +242,38 @@ def test_unported_flags_exit_naming_their_item(flag, reason):
     # package's ImageFolder error.
     with pytest.raises(FileNotFoundError, match="ImageNet2012/train"):
         tpu_native.main([a for a in TINY_ARGS if a != "--synthetic"])
+
+
+def test_sync_bn_and_fused_ce_without_a_group_change_nothing(tmp_path):
+    """``--sync-bn`` without a process group and ``--fused-ce 4`` (an LM
+    flag the JAX image trainer never reads) both run, and their losses are
+    bitwise those of the run without them (f32)."""
+    args = TINY_ARGS + ["--precision", "fp32", "--epoch-csv", str(tmp_path / "e.csv"),
+                        "--checkpoint-dir", str(tmp_path)]
+    want = [float(x) for x in tpu_native.run(args).losses]
+    for flags in (["--sync-bn"], ["--fused-ce", "4", "--fused-ce-mode", "dp"]):
+        assert [float(x) for x in tpu_native.run(args + flags).losses] == want
+
+
+def test_explicit_step_refuses_sync_bn_with_fused_convbn(tmp_path, monkeypatch):
+    """The JAX trainer's refusal, word for word, on ``horovod_distributed``
+    at a gloo world of one; the group is taken down again."""
+    import socket
+
+    from pytorch_distributed_tpu_torch.recipes import horovod_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(PTD_TPU_COORDINATOR=f"127.0.0.1:{port}", PTD_TPU_NUM_PROCESSES="1",
+                     PTD_TPU_PROCESS_ID="0").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ValueError, match="^--sync-bn and --fused-convbn are mutually "
+                       "exclusive: the fused conv\\+BN backward has no cross-replica "
+                       "statistics variant; drop one of the flags$"):
+        horovod_distributed.main(TINY_ARGS + ["--sync-bn", "--fused-convbn",
+                                              "--checkpoint-dir", str(tmp_path)])
+    assert not torch.distributed.is_initialized()
 
 
 def test_recipe_defaults_to_cuda_and_raises_without_card(monkeypatch):

@@ -25,8 +25,7 @@ def test_sampling_flags_are_seeded(capsys):
     assert capsys.readouterr().out == first
 
 
-@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--tp", "2"],
-                                  ["--spec-draft", "random"]])
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--tp", "2", "--quant", "int8"]])
 def test_unported_flags_exit_nonzero(flag):
     with pytest.raises(SystemExit) as exc:
         lm_generate.main(SMALL + ["--prompt-tokens", "1,2", "-n", "2"] + flag)

@@ -242,13 +242,23 @@ def test_recipe_trains_on_cpu(capsys):
     assert np.isfinite(lm_pretrain.main(TINY + ["--no-eval"]))
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--fused-ce", "4"], ["--remat"],
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--sp", "2"], ["--remat", "--pp", "2"],
                                   ["--nan-guard"],
                                   ["--metrics-jsonl", "m.jsonl"], ["--zero", "wus"]])
 def test_unported_flags_exit_nonzero(flag):
     with pytest.raises(SystemExit) as exc:
         lm_pretrain.main(TINY + flag)
     assert "ROADMAP.md item A" in str(exc.value.code)
+
+
+@pytest.mark.parametrize("flag,message", [
+    (["--remat"], "--remat applies to the pipeline stages (requires --pp > 1)"),
+    (["--accum-steps", "2", "--pp", "2"], "--accum-steps with --pp is redundant"),
+    (["--schedule", "1f1b"], "--schedule 1f1b requires --pp > 1")])
+def test_jax_argument_checks_come_first_in_the_jax_words(flag, message):
+    with pytest.raises(SystemExit) as exc:
+        lm_pretrain.main(TINY + flag)
+    assert str(exc.value.code).startswith(message)
 
 
 def test_recipe_defaults_to_cuda_and_raises_without_card(monkeypatch):

@@ -69,8 +69,22 @@ def test_metrics_jsonl_carries_the_slo_fields(capsys, tmp_path):
     assert steps[-1]["requests_completed"] == 6
 
 
+def test_quant_and_gamma_serve_every_request(capsys):
+    """``--quant int8`` and ``--gamma 3`` (the default one-layer 16-wide
+    draft) each serve the whole trace: every request to its cap, so the
+    same token count as the plain run; speculation in no more steps."""
+    assert serve_lm.main(TOY) == 0
+    plain = _summary(capsys)
+    assert serve_lm.main(TOY + ["--quant", "int8"]) == 0
+    quant = _summary(capsys)
+    assert serve_lm.main(TOY + ["--gamma", "3"]) == 0
+    spec = _summary(capsys)
+    for run in (quant, spec):
+        assert run["completed"] == 6 and run["tokens"] == plain["tokens"]
+    assert spec["steps"] <= plain["steps"]
+
+
 @pytest.mark.parametrize("flags, item", [
-    (["--gamma", "3"], "A6"), (["--quant", "int8"], "A5"),
     (["--slo-ttft-ms", "40"], "A12"),
     (["--slo-kv-pct", "90"], "A12"), (["--req-trace"], "A12")])
 def test_not_ported_flags_exit_naming_their_item(flags, item):

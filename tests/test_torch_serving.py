@@ -15,8 +15,14 @@ The same numpy-seeded inputs, weights (carried over by
   schedule does not depend on token values and the counters must match
   exactly.
 
+The int8 engine and the speculative one (gamma 3, a 16-wide one-layer
+draft) are held to the same rules, and the speculative engine's tokens
+must also equal the port's own engine without a draft: its rounds accept
+against the target's greedy argmax.
+
 Every engine runs on a fake clock, and every JAX engine uses one shape
-configuration, so its jitted steps compile once per process.
+configuration, so its jitted steps compile once per process (once more
+for the int8 model and the speculative round).
 """
 
 import copy
@@ -27,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_distributed_tpu.models import quant as jq
 from pytorch_distributed_tpu.models.transformer import TransformerLM as JaxLM
 from pytorch_distributed_tpu.serving import kvpool as jkv
 from pytorch_distributed_tpu.serving import loadgen as jload
@@ -34,6 +41,7 @@ from pytorch_distributed_tpu.serving import scheduler as jsched
 from pytorch_distributed_tpu.serving.engine import ServingEngine as JaxEngine
 from pytorch_distributed_tpu.serving.model import PagedTransformerLM as JaxPagedLM
 from pytorch_distributed_tpu_torch.models.generate import filter_logits, greedy_generate
+from pytorch_distributed_tpu_torch.models.quant import quantize_state_dict
 from pytorch_distributed_tpu_torch.models.transformer import TransformerLM, rope
 from pytorch_distributed_tpu_torch.obs.metrics import MetricsLogger
 from pytorch_distributed_tpu_torch.serving import kvpool, loadgen, scheduler
@@ -477,11 +485,74 @@ def test_engine_logs_slo_fields_and_events(weights):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(gamma=3), "A6"), (dict(quant="int8"), "A5"), (dict(watchdog=object()), "A12"),
-    (dict(chaos=object()), "A11"), (dict(trace=object()), "A12")])
+    (dict(watchdog=object()), "A12"), (dict(chaos=object()), "A11"),
+    (dict(trace=object()), "A12")])
 def test_not_ported_features_raise_naming_their_item(weights, kw, item):
     with pytest.raises(ValueError, match=f"ROADMAP.md item {item}"):
         _engine(ServingEngine, weights[1], **kw)
+
+
+# ------------------------------------------- engine: int8 and speculation
+
+def test_int8_engine_matches_jax_int8_engine(weights):
+    """``quant="int8"`` as the JAX ``test_int8_serving_smoke`` runs it (4
+    requests of up to 6 new tokens), on the shared engine shape: the same
+    counters, and the tokens of the JAX int8 engine under the margin rule
+    of the JAX int8 model's teacher-forced logits."""
+    params = weights[0]
+    qparams = jq.quantize_lm_params(params)
+    load = _load(loadgen, seed=6, n=4)
+    for _, req in load:
+        req.max_new_tokens = min(req.max_new_tokens, 6)
+    jload_ = _load(jload, seed=6, n=4)
+    for _, req in jload_:
+        req.max_new_tokens = min(req.max_new_tokens, 6)
+    jeng = _engine(JaxEngine, qparams, quant="int8")
+    want_summary = jeng.run(jload_)
+    eng = _engine(ServingEngine, quantize_state_dict(weights[1]), quant="int8")
+    summary = eng.run(load)
+    assert {k: summary[k] for k in COUNTERS} == {k: want_summary[k] for k in COUNTERS}
+    assert summary["completed"] == 4
+    assert eng.model.blocks[0].fc1.w_q.dtype == torch.int8
+    jfwd = jax.jit(lambda toks: JaxLM(**CFG, quant="int8").apply({"params": qparams}, toks))
+    want = _tokens(jeng)
+    prompts = {r.rid: r.prompt for _, r in load}
+    gaps = {rid: _jax_gaps(jfwd, prompts[rid], toks) for rid, toks in want.items()}
+    compared, _ = _compare_under_margin(_tokens(eng), want, gaps)
+    assert compared >= 0.9 * sum(len(t) for t in want.values())
+    for r in eng.finished:
+        assert len(r.generated) == r.max_new_tokens
+
+
+def test_speculative_engine_matches_jax_and_plain_engines(weights):
+    """gamma=3 with a 16-wide one-layer draft, as the JAX
+    ``test_speculative_decode_bit_exact`` runs it: the tokens of the port's
+    engine without a draft, and the JAX speculative engine's tokens and
+    counters; never more iterations than without the draft."""
+    params, sd = weights
+    jdraft = jax.tree_util.tree_map(np.asarray, jax.jit(JaxLM(
+        vocab_size=CFG["vocab_size"], d_model=16, n_heads=CFG["n_heads"], n_layers=1).init)(
+        jax.random.PRNGKey(1), jnp.zeros((1, 4), jnp.int32))["params"])
+    draft = lm_state_dict_from_jax(jdraft)
+    plain = _engine(ServingEngine, sd)
+    plain.run(_load(loadgen, seed=5, n=6))
+    jeng = _engine(JaxEngine, params, gamma=3, draft_params=jdraft)
+    want_summary = jeng.run(_load(jload, seed=5, n=6))
+    spec = _engine(ServingEngine, sd, gamma=3, draft_params=draft)
+    summary = spec.run(_load(loadgen, seed=5, n=6))
+    assert summary["completed"] == 6
+    assert _tokens(spec) == _tokens(plain) == _tokens(jeng)
+    assert {k: summary[k] for k in COUNTERS} == {k: want_summary[k] for k in COUNTERS}
+    assert summary["steps"] <= plain.summary()["steps"]
+    assert spec.draft is not None and spec.decode_iterations > 0
+
+
+def test_speculative_engine_is_greedy_only_and_needs_a_draft(weights):
+    with pytest.raises(ValueError, match="greedy-only"):
+        _engine(ServingEngine, weights[1], gamma=2, temperature=0.5,
+                draft_params=weights[1])
+    with pytest.raises(ValueError, match="requires draft_params"):
+        _engine(ServingEngine, weights[1], gamma=2)
 
 
 def test_engine_runs_on_cuda_by_default_and_raises_without_a_card(weights, monkeypatch):
