@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's serving, LM training and image training paths,
 their checkpoints, image training from an ImageFolder tree on disk, the
-data-parallel image recipes, the fused CE head, int8 weights and
-speculative decoding, on one NVIDIA H100 and check them.
+data-parallel image recipes, the fused CE head, int8 weights,
+speculative decoding and the gradient-communication stack, on one NVIDIA
+H100 and check them.
 
     python3 chip_smoke.py
 
@@ -167,7 +168,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     iteration; the speculative engine's tokens equal the plain engine's,
     the int8 engine's the int8 dense path's on 90% of the first 8
     requests, both under the 1e-3 top-2 rule; ``serve_lm.main --quant int8
-    --gamma 3`` serves 8 requests; none of K1-K5 launches.
+    --gamma 3`` serves 8 requests; none of K1-K5 launches;
+20. the gradient-communication stack at full width: ``horovod_distributed
+    --zero wus --grad-compress none --sync-bn`` (f32, TF32 off, unfused) at
+    2 gloo ranks of b128 sharing the card within ``WORLD_*`` of 1 rank of
+    b256, each rank
+    holding at most half the replicated momentum plus a block of padding a
+    leaf; then, in one worker process at world 1 over NCCL (cuDNN
+    deterministic, bf16 compute, 3 steps each), ``horovod_distributed``
+    with its bf16 wire, ``--grad-compress int8`` and ``fp8``, ``--zero
+    wus`` (bf16 wire, and with int8), ``--overlap bucketed --bucket-mb 4``,
+    the f32 wire plain, bucketed and with ``--zero wus``, and
+    ``distributed --zero wus`` (the GSPMD twin): K4 33 and K5 13 times a
+    step, finite losses, the f32 bucketed and ZeRO runs bitwise equal to
+    the plain f32 one, int8's first update bitwise equal to the plain
+    ``fake_quantize(fake_quantize(g)) / count + wd * w`` chain; an int8
+    epoch stopped after 2 of 4 steps and resumed ends bitwise where the
+    uninterrupted one does, residual included; ``lm_pretrain`` at the LM
+    cell for 8 steps with ``--grad-compress int8`` and with ``--overlap
+    bucketed --grad-compress int8``: K1-K3 once per layer per step, finite
+    losses.  Prints each variant's step against its baseline (the bf16
+    wire; phase 17's unfused LM step), the sync stage alone and the
+    bucket count.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
@@ -223,6 +245,7 @@ from pytorch_distributed_tpu_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from pytorch_distributed_tpu_torch.train import gradsync
 from pytorch_distributed_tpu_torch.train.config import parse_config
 from pytorch_distributed_tpu_torch.train.lm import lm_loss
 from pytorch_distributed_tpu_torch.train.optim import sgd
@@ -922,7 +945,10 @@ def recipe_worker(argv) -> int:
            "losses": [float(x) for x in trainer.losses],
            "eval": list(trainer.eval_history[0]), "precision": trainer.cfg.precision,
            "explicit": trainer.explicit_collectives, "wire": trainer.cfg.grad_compress,
-           "step_times_ms": [t * 1e3 for t in trainer.step_times]}
+           "step_times_ms": [t * 1e3 for t in trainer.step_times],
+           "param_bytes": 4 * sum(p.numel() for p in trainer.model.parameters()),
+           "n_params": len(list(trainer.model.parameters())),
+           "momentum_bytes": gradsync.momentum_bytes(trainer.optimizer, trainer.comm)}
     if ctx.process_index == 0:
         torch.save({k: v.detach().cpu() for k, v in trainer.model.state_dict().items()},
                    os.path.join(out, "state.pt"))
@@ -932,8 +958,9 @@ def recipe_worker(argv) -> int:
         dev = trainer.device
         g = torch.Generator(device=dev).manual_seed(1)
         b = trainer.local_batch
-        batch = {"images": torch.randn(b, 224, 224, 3, device=dev, generator=g),
-                 "labels": torch.randint(0, 1000, (b,), device=dev, generator=g),
+        side, classes = trainer.cfg.image_size, trainer.cfg.num_classes
+        batch = {"images": torch.randn(b, side, side, 3, device=dev, generator=g),
+                 "labels": torch.randint(0, classes, (b,), device=dev, generator=g),
                  "weights": torch.ones(b, device=dev)}
         times = []
         for _ in range(9):
@@ -1327,7 +1354,8 @@ def _greedy_rule(model, prompt, got, want, gap_limit, what):
 
 def fused_ce_phase(dev, card, cfg, steps=8, TB=4, TL=4096, chunks=8):
     """Phase 17: ``lm_pretrain --fused-ce`` at the LM cell's full width.
-    Returns the (K1, K2, K3) launches of its training runs."""
+    Returns the (K1, K2, K3) launches of its training runs and the unfused
+    bf16 step's median ms."""
     from pytorch_distributed_tpu_torch.train.lm import SyntheticTokenDataset
 
     # f32, TF32 off: the fused loss against the unfused head on the same
@@ -1393,12 +1421,14 @@ def fused_ce_phase(dev, card, cfg, steps=8, TB=4, TL=4096, chunks=8):
         if launches != (cfg["n_layers"] * steps,) * 3:
             raise SystemExit(f"--fused-ce {n} training launched (K1, K2, K3) {launches} "
                              f"times in {steps} steps")
+        if n == 0:
+            unfused_ms = step_ms  # phase 20's LM baseline
         if not all(math.isfinite(x) for x in losses):
             raise SystemExit(f"non-finite --fused-ce {n} loss: {losses}")
         total = [a + b for a, b in zip(total, launches)]
         del trainer
     torch.cuda.empty_cache()
-    return total
+    return total, unfused_ms
 
 
 def _decode_times(model, prompt, n_new, reps=3):
@@ -1642,6 +1672,365 @@ def engine_variants_phase(dev, card, lm, kv_blocks=385, n_requests=16, n_dense=8
     if any(launched):
         raise SystemExit("the serving engine launched a kernel it should not reach")
     torch.cuda.empty_cache()
+
+
+# Phase 20: the gradient-communication stack (ROADMAP A9) at full width.
+# The image variants run one after another in one worker process
+# (``python3 chip_smoke.py --a9-worker OUT``), each through
+# ``horovod_distributed`` (or ``distributed`` for the GSPMD twin) at world 1
+# over NCCL (``PTD_TPU_*``), ResNet-50 --fused-convbn b256 224x224
+# synthetic, bf16 compute, cuDNN deterministic, 3 steps and one eval batch.
+A9_IMAGE = (("bf16 wire (baseline)", "horovod_distributed", []),
+            ("int8", "horovod_distributed", ["--grad-compress", "int8"]),
+            ("fp8", "horovod_distributed", ["--grad-compress", "fp8"]),
+            ("wus, bf16 wire", "horovod_distributed", ["--zero", "wus"]),
+            ("wus int8", "horovod_distributed", ["--zero", "wus", "--grad-compress", "int8"]),
+            ("bucketed 4 MiB, bf16 wire", "horovod_distributed",
+             ["--overlap", "bucketed", "--bucket-mb", "4"]),
+            ("f32 wire", "horovod_distributed", ["--grad-compress", "none"]),
+            ("f32 wire bucketed 4 MiB", "horovod_distributed",
+             ["--grad-compress", "none", "--overlap", "bucketed", "--bucket-mb", "4"]),
+            ("f32 wire wus", "horovod_distributed", ["--grad-compress", "none", "--zero", "wus"]),
+            ("distributed --zero wus (GSPMD twin)", "distributed", ["--zero", "wus"]))
+
+
+def _plain_fake_quantize_int8(x: torch.Tensor) -> torch.Tensor:
+    """The int8 round trip of one leaf (JAX layout), written out plainly:
+    blocks of 256 over the zero-padded flat leaf, ``scale = absmax *
+    f32(1/127)`` (as XLA compiles the JAX package's ``absmax / 127``),
+    ``round(clip(x * 127/absmax))`` half to even, times the scale."""
+    flat = x.float().reshape(-1)
+    xb = F.pad(flat, (0, (-flat.numel()) % 256)).view(-1, 256)
+    absmax = xb.abs().amax(-1, keepdim=True)
+    q127 = torch.full((), 127.0, device=x.device)
+    scale = absmax * torch.full((), float(np.float32(1) / np.float32(127)), device=x.device)
+    inv = torch.where(absmax > 0, q127 / absmax, torch.zeros((), device=x.device))
+    q = torch.round(torch.clamp(xb * inv, -127.0, 127.0)).to(torch.int8)
+    return (q.float() * scale).reshape(-1)[:flat.numel()].view(x.shape)
+
+
+def _timed(fn, store):
+    """``fn`` with each call's wall time, closed by synchronises, appended
+    (ms) to ``store``."""
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        store.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+def a9_worker(argv) -> int:
+    """Phase 20's image variants in this process (see ``A9_IMAGE``), then the
+    int8 resume; writes OUT/a9.json."""
+    import importlib
+
+    from pytorch_distributed_tpu_torch.ops import qcomm
+    from pytorch_distributed_tpu_torch.parallel import initialize, shutdown
+    from pytorch_distributed_tpu_torch.utils.convert import jax_leaves
+
+    out, size = argv[0], argv[1:]  # size: recipe flags that cut the run (a CPU rehearsal)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    os.environ.update(PTD_TPU_NUM_PROCESSES="1", PTD_TPU_PROCESS_ID="0")
+    common = dp_args(3, 256) + ["--precision", "bf16"] + size
+    results, states = [], {}
+    capture = {"on": False}
+    real_sync, real_step = gradsync.GradSync.sync_explicit, torch.optim.SGD.step
+
+    def sync_capture(self, count):
+        if capture["on"] and "g" not in capture:  # the first step's local sums
+            capture.update(g=[p.grad.detach().clone() for p in self.params], count=count.clone(),
+                           p=[p.detach().clone() for p in self.params], leaves=self.leaves)
+        return real_sync(self, count)
+
+    def step_capture(self, *a, **k):
+        r = real_step(self, *a, **k)
+        if capture["on"] and "g" in capture and "m" not in capture:
+            capture["m"] = [self.state[p]["momentum_buffer"].clone()
+                            for p in capture["params"]]
+        return r
+
+    gradsync.GradSync.sync_explicit = sync_capture
+    torch.optim.SGD.step = step_capture
+    for tag, name, extra in A9_IMAGE:
+        os.environ["PTD_TPU_COORDINATOR"] = f"127.0.0.1:{_free_port()}"
+        mod = importlib.import_module(f"pytorch_distributed_tpu_torch.recipes.{name}")
+        trainers = []
+        mod.finish = lambda t: trainers.append(t) or t.best_acc1  # keep the group up
+        capture.clear()
+        capture["on"] = "int8" == tag
+        d = tempfile.mkdtemp(prefix="a9_", dir=out)
+        fused_dgrad_wgrad.launches = fused_dgrad_wgrad_3x3.launches = 0
+        if capture["on"]:
+            capture["params"] = None  # set below, once the model exists
+            real_init = gradsync.GradSync.__init__
+
+            def init_capture(self, model, *a, **k):
+                real_init(self, model, *a, **k)
+                capture["params"] = self.params
+            gradsync.GradSync.__init__ = init_capture
+        t0 = time.perf_counter()
+        mod.main(common + extra + ["--checkpoint-dir", d, "--epoch-csv",
+                                   os.path.join(d, "epochs.csv")])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        if capture["on"]:
+            gradsync.GradSync.__init__ = real_init
+        launches = [fused_dgrad_wgrad.launches, fused_dgrad_wgrad_3x3.launches]
+        (trainer,) = trainers
+        capture["on"] = False
+        comm = trainer.comm
+        res = {"tag": tag, "recipe": name, "backend": trainer.ctx.backend,
+               "world": trainer.ctx.process_count, "launches": launches,
+               "steps": len(trainer.losses), "losses": [float(x) for x in trainer.losses],
+               "run_s": run_s, "buckets": len(comm.buckets),
+               "momentum_bytes": gradsync.momentum_bytes(trainer.optimizer, comm)}
+        if tag in ("f32 wire", "f32 wire bucketed 4 MiB", "f32 wire wus"):
+            states[tag] = ([float(x) for x in trainer.losses],
+                           {k: v.detach().clone() for k, v in trainer.model.state_dict().items()})
+        if "m" in capture:
+            # The first update against the plain chain: the local sums
+            # through two int8 round trips (JAX at one rank: the all-to-all
+            # stage, then the re-quantized all-gather), divided by the
+            # count, plus the weight decay as torch's SGD adds it.
+            same = total = 0
+            for leaf, g, p, m in zip(capture["leaves"], capture["g"], capture["p"],
+                                     capture["m"]):
+                fq = leaf.from_jax(_plain_fake_quantize_int8(
+                    _plain_fake_quantize_int8(leaf.to_jax(g))))
+                want = (fq / capture["count"]).add(p, alpha=trainer.cfg.weight_decay)
+                same += int((want == m).sum())
+                total += m.numel()
+            res["first_update_equal"], res["first_update_total"] = same, total
+        # The train step alone on one device batch: 2 warm-ups, median of 7;
+        # then 3 more with the sync stage closed by synchronises, its time.
+        dev = trainer.device
+        g = torch.Generator(device=dev).manual_seed(1)
+        b = trainer.local_batch
+        side, classes = trainer.cfg.image_size, trainer.cfg.num_classes
+        batch = {"images": torch.randn(b, side, side, 3, device=dev, generator=g),
+                 "labels": torch.randint(0, classes, (b,), device=dev, generator=g),
+                 "weights": torch.ones(b, device=dev)}
+        times = []
+        for _ in range(9):
+            t0 = time.perf_counter()
+            trainer.train_step(batch, 0.1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        sync_ms = []
+        stage = "wus_step" if comm.wus else "sync_explicit"  # every variant has a GradSync
+        setattr(comm, stage, _timed(getattr(comm, stage), sync_ms))
+        for _ in range(3):
+            trainer.train_step(batch, 0.1)
+        delattr(comm, stage)
+        res["sync_ms"] = statistics.median(sync_ms)
+        res["step_ms"], res["step_ms_all"] = statistics.median(times[2:]), times
+        results.append(res)
+        shutdown(trainer.ctx)
+        shutil.rmtree(d, ignore_errors=True)
+        del trainer, trainers, comm
+        gc.collect()
+        torch.cuda.empty_cache()
+    gradsync.GradSync.sync_explicit, torch.optim.SGD.step = real_sync, real_step
+    bitwise = {}
+    base_losses, base = states["f32 wire"]
+    for tag in ("f32 wire bucketed 4 MiB", "f32 wire wus"):
+        losses, st = states[tag]
+        bitwise[tag] = losses == base_losses and all(torch.equal(st[k], base[k]) for k in base)
+
+    # The int8 resume: a 4-step epoch stopped after step 2 (where
+    # --save-steps 2 saved), resumed; the residual rides in the file.
+    os.environ["PTD_TPU_COORDINATOR"] = f"127.0.0.1:{_free_port()}"
+    img = dp_args(4, 256) + ["--precision", "bf16", "--grad-compress", "int8"] + size
+    ctx = initialize(device=parse_config(img).device)
+    d = tempfile.mkdtemp(prefix="a9_resume_", dir=out)
+
+    def full_state(t):
+        st = _state(t.model, t.optimizer)
+        res_tree = t.comm.checkpoint_trees()["residual"]
+        for leaf, v in zip(jax_leaves(t.model), qcomm.tree_leaves(res_tree)):
+            st[f"residual:{leaf.name}"] = torch.from_numpy(v)
+        return st
+
+    ref = Trainer(parse_config(img + ["--checkpoint-dir", os.path.join(d, "ref")]), ctx,
+                  explicit_collectives=True)
+    ref.fit()
+    want_losses, want = [float(x) for x in ref.losses], full_state(ref)
+    del ref
+    first = Trainer(parse_config(img + ["--checkpoint-dir", os.path.join(d, "run"),
+                                        "--save-steps", "2"]), ctx, explicit_collectives=True)
+    stopped = first.train_epoch(0, stop_after=2)
+    first_losses = [float(x) for x in first.losses]
+    del first
+    fused_dgrad_wgrad.launches = fused_dgrad_wgrad_3x3.launches = 0
+    resumed = Trainer(parse_config(img + ["--checkpoint-dir", os.path.join(d, "run"), "--resume",
+                                          os.path.join(d, "run", CHECKPOINT_NAME)]), ctx,
+                      explicit_collectives=True)
+    resumed.fit()
+    torch.cuda.synchronize()
+    got = full_state(resumed)
+    losses = first_losses + [float(x) for x in resumed.losses]
+    resume = {"stopped": stopped, "losses": losses, "want_losses": want_losses,
+              "launches": [fused_dgrad_wgrad.launches, fused_dgrad_wgrad_3x3.launches],
+              "steps": len(resumed.losses),
+              "bitwise": losses == want_losses and all(torch.equal(t, want[k])
+                                                       for k, t in got.items()),
+              "worst": max((t.float() - want[k].float()).abs().max().item()
+                           for k, t in got.items()),
+              "residual_sum": float(sum(t.abs().sum() for k, t in got.items()
+                                        if k.startswith("residual:")))}
+    shutdown(ctx)
+    shutil.rmtree(d, ignore_errors=True)
+    with open(os.path.join(out, "a9.json"), "w") as f:
+        json.dump({"variants": results, "bitwise": bitwise, "resume": resume}, f)
+    return 0
+
+
+def _json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def a9_phase(dev, card, cfg, lm_base_ms, TB=4, TL=4096, steps=8, per_step=(33, 13), size=()):
+    """Phase 20: the gradient-communication stack at full width (``size``:
+    recipe flags that cut the image runs, for a rehearsal; ``lm_base_ms``:
+    phase 17's unfused LM step).  Returns the (K1, K2, K3, K4, K5) launches
+    of its runs."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_a9_")
+    try:
+        # --zero wus on the explicit step, f32, TF32 off: 1 rank of b256 over
+        # NCCL and 2 gloo ranks of b128 sharing the card, three processes at
+        # once; then the image variants alone on the card, one process.  The
+        # explicit step's BatchNorm is per rank unless --sync-bn, which it
+        # refuses with --fused-convbn (phase 16's sync_bn_check).
+        t0 = time.perf_counter()
+        args = [a for a in dp_args(3, 256) if a != "--fused-convbn"] + [
+            "--precision", "fp32", "--grad-compress", "none", "--zero", "wus",
+            "--sync-bn"] + list(size)
+        procs = []
+        for world in (1, 2):
+            o = os.path.join(root, f"wus_world{world}")
+            port = _free_port()
+            procs += [_launch("horovod_distributed", o,
+                              args + ["--checkpoint-dir", os.path.join(o, "ckpt")],
+                              ("--tf32-off",),
+                              {"PTD_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                               "PTD_TPU_NUM_PROCESSES": str(world),
+                               "PTD_TPU_PROCESS_ID": str(r)}) for r in range(world)]
+        _wait(procs, "horovod_distributed --zero wus at world 1 and 2")
+        pair_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        here = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
+                                 "--a9-worker", root, *size],
+                                env={**os.environ, "PYTHONPATH": here + os.pathsep
+                                     + os.environ.get("PYTHONPATH", "")}, cwd=root,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _wait([proc], "the phase-20 image worker", timeout=900)
+        worker_s = time.perf_counter() - t0
+        rec = _json(os.path.join(root, "a9.json"))
+        r1 = _json(os.path.join(root, "wus_world1", "result0.json"))
+        r2 = [_json(os.path.join(root, "wus_world2", f"result{r}.json")) for r in range(2)]
+        s1 = torch.load(os.path.join(root, "wus_world1", "state.pt"))
+        s2 = torch.load(os.path.join(root, "wus_world2", "state.pt"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    failed, k45 = [], [0, 0]
+    base = rec["variants"][0]
+    for v in rec["variants"]:
+        want = [per_step[0] * 3, per_step[1] * 3]
+        ok = (v["backend"] == "nccl" and v["world"] == 1 and v["launches"] == want
+              and v["steps"] == 3 and all(math.isfinite(x) for x in v["losses"]))
+        print(f"[a9] {v['recipe']} {v['tag']}: step {v['step_ms']} ms vs {base['step_ms']} ms "
+              f"for the bf16-wire baseline ({v['step_ms'] - base['step_ms']:+} ms; steps "
+              f"{v['step_ms_all']}); gradient sync alone {v['sync_ms']} ms (baseline's "
+              f"all-reduce {base['sync_ms']} ms); {v['buckets']} bucket(s); momentum held "
+              f"{v['momentum_bytes']} bytes; K4/K5 {v['launches']} over {v['steps']} steps; "
+              f"losses {v['losses']}; backend {v['backend']}, world {v['world']}; run "
+              f"{v['run_s']} s; card {card}")
+        if not ok:
+            failed.append(f"{v['tag']}: backend, launches {v['launches']} or losses wrong")
+        if "first_update_equal" in v:
+            print(f"[a9] int8 first update (momentum after step 1) vs the plain chain "
+                  f"fake_quantize(fake_quantize(g)) / count + wd * w: "
+                  f"{v['first_update_equal']} of {v['first_update_total']} elements bitwise "
+                  f"equal; card {card}")
+            if v["first_update_equal"] != v["first_update_total"]:
+                failed.append("int8's first update is not the plain chain's bit for bit")
+        k45 = [a + b for a, b in zip(k45, v["launches"])]
+    for tag, same in rec["bitwise"].items():
+        print(f"[a9] {tag} vs f32 wire (--overlap none, --zero none), 3 steps: bitwise "
+              f"{'equal' if same else 'DIFFERENT'}")
+        if not same:
+            failed.append(f"{tag} is not bitwise equal to its plain run")
+    r = rec["resume"]
+    print(f"[a9] int8 resume: stopped after {r['stopped']} of 4 steps, resumed for "
+          f"{r['steps']} (K4/K5 {r['launches']}): losses {r['losses']} vs uninterrupted "
+          f"{r['want_losses']}; weights, statistics, momentum and residual (|residual| sum "
+          f"{r['residual_sum']}) bitwise {'equal' if r['bitwise'] else 'DIFFERENT'} (worst "
+          f"{r['worst']}); card {card}")
+    if not (r["bitwise"] and r["stopped"] == 2 and r["residual_sum"] > 0
+            and r["launches"] == [2 * per_step[0], 2 * per_step[1]]):
+        failed.append("the int8 resume does not end bitwise where the uninterrupted run does")
+    k45 = [a + b for a, b in zip(k45, r["launches"])]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(r2[0]["losses"], r1["losses"]))
+    worst = max((s2[k].float() - w.float()).abs().max().item() for k, w in s1.items())
+    within = loss_rel <= WORLD_LOSS_REL and worst <= WORLD_WEIGHT_ABS
+    full = r1["param_bytes"]
+    print(f"[a9] --zero wus --sync-bn explicit step, unfused, f32 TF32 off, 3 steps: 2 ranks "
+          f"x b128 over "
+          f"{r2[0]['backend']} vs 1 x b256 over {r1['backend']} (the three processes "
+          f"{pair_s} s): losses {r2[0]['losses']} vs {r1['losses']} (max rel {loss_rel}, limit "
+          f"{WORLD_LOSS_REL}); weights and statistics max abs diff {worst} (limit "
+          f"{WORLD_WEIGHT_ABS}); within: {within}; momentum held per rank "
+          f"{[x['momentum_bytes'] for x in r2]} bytes at 2 ranks, {r1['momentum_bytes']} at 1, "
+          f"replicated {full}; card {card}")
+    for x in [r1] + r2:
+        k45 = [a + b for a, b in zip(k45, x["launches"])]
+    if not (within and r2[0]["losses"] == r2[1]["losses"] and r2[0]["backend"] == "gloo"
+            and all(x["momentum_bytes"] <= full / 2 + 4 * 256 * x["n_params"] for x in r2)):
+        failed.append("--zero wus at 2 ranks: outside WORLD_* or momentum not 1/2")
+    print(f"[time] phase 20: the 2-rank check {pair_s} s, the image worker {worker_s} s")
+
+    # The LM variants through lm_pretrain at the LM cell, bf16, no eval.
+    lm = []
+    for extra in (["--grad-compress", "int8"],
+                  ["--overlap", "bucketed", "--grad-compress", "int8"]):
+        flash_attention.launches = 0
+        flash_attention_bwd_dq.launches = flash_attention_bwd_dkv.launches = 0
+        torch.cuda.empty_cache()
+        trainer = lm_pretrain.run([
+            "--vocab", str(cfg["vocab_size"]), "--d-model", str(cfg["d_model"]),
+            "--n-heads", str(cfg["n_heads"]), "--n-layers", str(cfg["n_layers"]),
+            "--seq-len", str(TL), "-b", str(TB), "--steps", str(steps), "--precision", "bf16",
+            "--no-eval", "-p", "4", "--device", str(dev)] + extra)
+        torch.cuda.synchronize()
+        launches = (flash_attention.launches, flash_attention_bwd_dq.launches,
+                    flash_attention_bwd_dkv.launches)
+        losses = [float(x) for x in trainer.losses]
+        step_ms = statistics.median(trainer.step_times[1:]) * 1e3
+        comm, sync_ms = trainer.comm, []
+        stage = "sync_explicit" if comm.explicit else "emulate_grads"
+        setattr(comm, stage, _timed(getattr(comm, stage), sync_ms))
+        tokens = trainer._tokens(trainer.dataset, 0)
+        for _ in range(3):
+            trainer.step_fn(tokens, 0.01)
+        print(f"[a9] lm_pretrain {' '.join(extra)} B={TB} L={TL} bf16: step {step_ms} ms vs "
+              f"phase 17's unfused step {lm_base_ms} ms (all "
+              f"{[t * 1e3 for t in trainer.step_times]}); sync stage alone "
+              f"{statistics.median(sync_ms)} ms ({sync_ms}); {len(comm.buckets)} bucket(s); "
+              f"launches K1/K2/K3 {launches}; losses {losses}; card {card}")
+        if launches != (cfg["n_layers"] * steps,) * 3 or not all(map(math.isfinite, losses)):
+            failed.append(f"lm_pretrain {' '.join(extra)}: launches {launches} or losses wrong")
+        lm.append(launches)
+        del trainer, comm
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit("phase 20: " + "; ".join(failed))
+    k123 = [sum(x[i] for x in lm) for i in range(3)]
+    return tuple(k123) + tuple(k45)
 
 
 def main() -> int:
@@ -2215,7 +2604,7 @@ def main() -> int:
 
     # 17. lm_pretrain --fused-ce at full width
     t0 = time.perf_counter()
-    k1_ce, k2_ce, k3_ce = fused_ce_phase(dev, card, cfg)
+    (k1_ce, k2_ce, k3_ce), lm_unfused_ms = fused_ce_phase(dev, card, cfg)
     print(f"[time] phase 17 took {time.perf_counter() - t0} s")
 
     # 18. int8 weight-only generate and speculative decoding
@@ -2228,20 +2617,25 @@ def main() -> int:
     engine_variants_phase(dev, card, cfg)
     print(f"[time] phase 19 took {time.perf_counter() - t0} s")
 
+    # 20. the gradient-communication stack: quantized wires, ZeRO, overlap
+    t0 = time.perf_counter()
+    k1_a9, k2_a9, k3_a9, k4_a9, k5_a9 = a9_phase(dev, card, cfg, lm_unfused_ms)
+    print(f"[time] phase 20 took {time.perf_counter() - t0} s")
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
         source="pytorch_distributed_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="pytorch_distributed_tpu/ops/flash_attention.py:37",
-        launches=serve_launches + train_launches[0] + k1 + k1_gen + k1_ce + k1_int8,
+        launches=serve_launches + train_launches[0] + k1 + k1_gen + k1_ce + k1_int8 + k1_a9,
         max_abs_err=path["err"],
         ms=path["ms"], plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
         bound_by=path["bound_by"], library_ms=path["library_ms"])]
     bpath = bwd["path"]
     for name, key, line, n in (("flash_attention_bwd_dq", "dq", 185,
-                                train_launches[1] + k2 + k2_ce),
+                                train_launches[1] + k2 + k2_ce + k2_a9),
                                ("flash_attention_bwd_dkv", "dkv", 214,
-                                train_launches[2] + k3 + k3_ce)):
+                                train_launches[2] + k3 + k3_ce + k3_a9)):
         kernels.append(dict(
             name=name, route="cuda",
             source="pytorch_distributed_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -2250,9 +2644,9 @@ def main() -> int:
             plain_ms=bpath["plain_ms"], bound_ms=bpath[key]["bound_ms"],
             bound_by=bpath[key]["bound_by"], library_ms=bpath["library_ms"]))
     for name, key, line, n in (("fused_dgrad_wgrad", "k4_path", 122,
-                                image_launches[0] + k4 + k4_data + k4_dp),
+                                image_launches[0] + k4 + k4_data + k4_dp + k4_a9),
                                ("fused_dgrad_wgrad_3x3", "k5_path", 210,
-                                image_launches[1] + k5 + k5_data + k5_dp)):
+                                image_launches[1] + k5 + k5_data + k5_dp + k5_a9)):
         kp = conv[key]
         kernels.append(dict(
             name=name, route="cuda",
@@ -2260,7 +2654,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-19 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-20 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2272,4 +2666,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--recipe-worker"]:
         sys.exit(recipe_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--a9-worker"]:
+        sys.exit(a9_worker(sys.argv[2:]))
     sys.exit(main())

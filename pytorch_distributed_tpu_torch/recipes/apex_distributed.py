@@ -9,6 +9,10 @@ f32 master weights, bf16 convs, f32 BatchNorm statistics and loss, no
 ``GradScaler``; ``DeviceFeeder`` is the prefetcher.  Launched like
 ``distributed``.
 
+``--zero wus`` additionally shards the f32 optimizer state 1/N over the
+ranks (``parallel/zero.py``): under bf16 compute the f32 momentum masters
+are exactly the bytes worth sharding first.
+
     python -m torch.distributed.run --nproc_per_node=1 \\
         -m pytorch_distributed_tpu_torch.recipes.apex_distributed -a resnet50 \\
         --synthetic --fused-convbn -b 256 --epochs 1

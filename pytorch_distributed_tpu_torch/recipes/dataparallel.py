@@ -11,6 +11,11 @@ global-batch BatchNorm, which keeps the JAX recipe's numbers (one card: one
 worker, in this process, over NCCL at world size 1).  The per-epoch CSV
 (dataparallel.py:188,205-213) is on by default, same file name.
 
+``--zero wus`` lifts the replicated-optimizer ceiling (``parallel/zero.py``):
+this GSPMD-twin step reduce-scatters the gradients in place of DDP's
+all-reduce, updates this rank's 1/N of the momentum and all-gathers the
+result, with the replicated step's numbers.
+
     python -m pytorch_distributed_tpu_torch.recipes.dataparallel -a resnet50 \\
         --synthetic --fused-convbn -b 256 --epochs 1
 """

@@ -8,6 +8,11 @@ distributed.py:73-76,132; start.sh:2).  The launcher's environment
 ``LOCAL_RANK``, or ``PTD_TPU_*``) names the world; the step is the JAX
 GSPMD step's twin: DDP, global-batch BatchNorm, summed gradients.
 
+``--zero wus`` shards the optimizer state 1/N over the ranks
+(``parallel/zero.py``; ZeRO-1, what torch's ZeroRedundancyOptimizer gives
+DDP users): a reduce-scatter replaces DDP's all-reduce, the SGD runs on
+this rank's chunk, the new weights are all-gathered.
+
     python -m torch.distributed.run --nproc_per_node=1 \\
         -m pytorch_distributed_tpu_torch.recipes.distributed -a resnet50 \\
         --synthetic --fused-convbn -b 256 --epochs 1

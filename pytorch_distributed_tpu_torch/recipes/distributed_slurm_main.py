@@ -9,6 +9,11 @@ counting processes, not nodes; ``--dist-file`` is accepted for launch-line
 parity and unused.  Only rank 0 prints and checkpoints, metrics are global.
 Per-epoch CSV on by default (``distributed.csv``, the reference's name).
 
+At many ranks ``--zero wus`` (``parallel/zero.py``) matters most: the
+optimizer state shards 1/N over every rank while checkpoints keep the
+replicated param-shaped layout, so a run at one world restores a
+checkpoint of another.
+
     SLURM_PROCID=0 SLURM_NTASKS=1 \\
         python -m pytorch_distributed_tpu_torch.recipes.distributed_slurm_main \\
         -a resnet50 --synthetic --fused-convbn -b 256 --epochs 1

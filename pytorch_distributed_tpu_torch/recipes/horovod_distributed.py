@@ -12,6 +12,13 @@ the BN running statistics averaged after the step.  That is not DDP's
 ``bf16_compress_hook``, which divides by the world size before the cast.
 Launched with ``PTD_TPU_*`` (or any launcher ``distributed`` takes).
 
+``--zero wus`` upgrades this explicit step to weight-update sharding
+(``parallel/zero.py``): the gradient all-reduce becomes a hand-written
+reduce-scatter, the momentum lives as this rank's 1/N chunks, and the
+parameter delta is all-gathered once a step on the recipe's bf16 wire; it
+composes with ``--grad-compress int8``, which puts *both* hops on the
+quantized path with error feedback (``ops/qcomm.py``).
+
     PTD_TPU_COORDINATOR=127.0.0.1:29400 PTD_TPU_NUM_PROCESSES=1 PTD_TPU_PROCESS_ID=0 \\
         python -m pytorch_distributed_tpu_torch.recipes.horovod_distributed -a resnet50 \\
         --synthetic --fused-convbn -b 256 --epochs 1

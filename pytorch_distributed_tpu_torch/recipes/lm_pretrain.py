@@ -20,6 +20,12 @@ at its exact step.
 cross-entropy (``ops/fused_ce.py``): the ``[B, L, vocab]`` logits never
 exist at once.
 
+``--grad-compress bf16|int8|fp8`` (the numerics emulation), ``--zero wus``
+(a no-op on one device, as in JAX at world 1) and ``--overlap bucketed``
+with ``--bucket-mb`` (the explicit step's bucketed sync) are the
+gradient-communication stack of ``train/lm.py``; the LM has no process
+group yet (ROADMAP.md item A21).
+
 The flag surface is the JAX recipe's plus ``--device`` (default ``cuda``).
 Its argument checks run first, in its order (``--remat`` applies to the
 pipeline stages only, so without ``--pp`` it exits with the JAX message).
@@ -48,7 +54,6 @@ from pytorch_distributed_tpu_torch.train.lm import (
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
 _PARALLEL = "A10 (model parallelism: --tp, --sp, --ep, --pp, --fsdp)"
-_GRAD_COMM = "A9 (gradient-communication stack: --zero, --grad-compress, --overlap)"
 _FT = "A11 (fault tolerance: --nan-guard, --elastic, the preemption guard)"
 _OBS = "A12 (observability: metrics, heartbeats, ledgers, alerts)"
 # Flags parsed for the JAX recipe's surface but not ported, each with the
@@ -56,7 +61,6 @@ _OBS = "A12 (observability: metrics, heartbeats, ledgers, alerts)"
 NOT_PORTED = {
     **dict.fromkeys(("tp", "sp", "sp_impl", "ep", "moe_top_k", "pp",
                      "microbatches", "schedule", "pp_virtual", "fsdp"), _PARALLEL),
-    **dict.fromkeys(("zero", "grad_compress", "overlap", "bucket_mb"), _GRAD_COMM),
     **dict.fromkeys(("preempt_signals", "nan_guard", "ft_rollback_k",
                      "ft_check_every", "ft_lr_backoff", "elastic", "min_ranks",
                      "rescale_lr"), _FT),
@@ -113,13 +117,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", choices=("fp32", "bf16"), default="bf16",
                    help="compute dtype; weights stay f32")
     p.add_argument("--zero", choices=("none", "wus"), default="none",
-                   help="not ported yet")
+                   help="ZeRO-style weight-update sharding (parallel/"
+                        "zero.py): 'wus' gives momentum leaves fsdp_specs "
+                        "data-axis shardings (composed over the --tp/--pp "
+                        "layout) while params stay in their declared "
+                        "layout — 1/N optimizer bytes per device, same "
+                        "numerics and checkpoint format.  Lighter than "
+                        "--fsdp (which also shards the params; that is the "
+                        "ZeRO-3 layout, this is ZeRO-1)")
     p.add_argument("--grad-compress", choices=("none", "bf16", "int8", "fp8"),
-                   default="none", dest="grad_compress", help="not ported yet")
-    p.add_argument("--overlap", choices=("none", "bucketed"), default="none",
-                   help="not ported yet")
-    p.add_argument("--bucket-mb", type=float, default=4.0, dest="bucket_mb",
-                   metavar="MIB", help="not ported yet")
+                   default="none", dest="grad_compress",
+                   help="gradient-sync compression (ops/qcomm.py): bf16 "
+                        "round-trip cast, or int8/fp8 block quantization "
+                        "with error feedback.  The LM step is GSPMD, so "
+                        "quantized modes run as a numerics emulation "
+                        "under the default GSPMD step (wire bytes "
+                        "unchanged; convergence effects real) — add "
+                        "--overlap bucketed on a pure-DP run to switch to "
+                        "the explicit shard_map step where the wire "
+                        "really carries the compressed collectives")
+    p.add_argument("--overlap", choices=("none", "bucketed"),
+                   default="none",
+                   help="comm-overlap scheduler (parallel/overlap.py): "
+                        "bucketed runs the pure-DP step as explicit "
+                        "shard_map collectives with ~--bucket-mb MiB "
+                        "reverse-autodiff grad buckets, each issued as "
+                        "its own psum so sync overlaps the remaining "
+                        "backward; bit-equal numerics.  Pure DP only "
+                        "(no --tp/--sp/--pp/--fsdp/--fused-ce/"
+                        "--accum-steps/--zero/--elastic)")
+    p.add_argument("--bucket-mb", type=float, default=4.0,
+                   dest="bucket_mb", metavar="MIB",
+                   help="target gradient bucket size in MiB for --overlap "
+                        "bucketed (smaller = more overlap, more "
+                        "collectives)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("-p", "--print-freq", type=int, default=10)
     p.add_argument("--checkpoint-dir", type=str, default=None)
@@ -229,6 +260,13 @@ def check_args(args) -> None:
         raise SystemExit("--accum-steps with --pp is redundant: the pipeline "
                          "schedule already microbatches; raise "
                          "--microbatches instead")
+    if args.overlap == "bucketed" and (
+            args.tp > 1 or args.sp > 1 or args.ep > 1 or args.pp > 1
+            or args.fsdp or args.fused_ce or args.accum_steps > 1
+            or args.zero != "none" or args.elastic):
+        raise SystemExit("--overlap bucketed runs the explicit shard_map "
+                         "pure-DP step only; drop --tp/--sp/--ep/--pp/"
+                         "--fsdp/--fused-ce/--accum-steps/--zero/--elastic")
 
 
 def run(argv=None) -> LMTrainer:
@@ -287,7 +325,9 @@ def run(argv=None) -> LMTrainer:
                             fused_ce_chunks=args.fused_ce,
                             fused_ce_mode=args.fused_ce_mode,
                             checkpoint_dir=args.checkpoint_dir,
-                            save_steps=args.save_steps, resume=args.resume)
+                            save_steps=args.save_steps, resume=args.resume,
+                            grad_compress=args.grad_compress, zero=args.zero,
+                            overlap=args.overlap, bucket_mb=args.bucket_mb)
     except NotImplementedError as e:  # an orbax checkpoint directory
         raise SystemExit(str(e)) from e
     final_loss = trainer.fit(args.steps, print_freq=args.print_freq)

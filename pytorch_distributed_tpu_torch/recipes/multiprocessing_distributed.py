@@ -9,6 +9,9 @@ multiprocessing_distributed.py:114,132-135; start.sh:1).  Plain
 one worker of a world launched outside (the coordinator still defaults to
 127.0.0.1:23456), which lets several ranks share one card over gloo.
 
+Accepts ``--zero wus`` like every recipe (``parallel/zero.py``
+weight-update sharding; the Trainer threads it from the shared Config).
+
     python -m pytorch_distributed_tpu_torch.recipes.multiprocessing_distributed \\
         -a resnet50 --synthetic --fused-convbn -b 256 --epochs 1
 """

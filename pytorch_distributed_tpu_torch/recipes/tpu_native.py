@@ -4,6 +4,10 @@ to the card, the epoch CSV (default ``tpu_native.csv``); under a launcher
 (``torch.distributed.run``, ``PTD_TPU_*`` or SLURM) one process per card
 with global-batch BatchNorm.
 
+``--zero wus`` (``parallel/zero.py``) keeps 1/N of the momentum per rank
+(all of it without a group, the same numbers); checkpoints stay
+interchangeable with every other recipe (gather-on-save).
+
     python -m pytorch_distributed_tpu_torch.recipes.tpu_native -a resnet50 \\
         --synthetic --fused-convbn -b 256 --epochs 1
     python -m pytorch_distributed_tpu_torch.recipes.tpu_native --device cpu \\

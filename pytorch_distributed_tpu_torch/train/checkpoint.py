@@ -24,11 +24,20 @@ legacy file without a sidecar still loads; if it fails to parse, that is
 ``CheckpointCorruptError``.  The ``ft`` record (step in epoch, global step,
 sampler seed and epoch, LR scale) restores the exact step.
 
+The gradient-communication stack's state (``train/gradsync.py``) rides in
+the same layout as in JAX: the error-feedback ``residual`` subtree (stacked
+``(n, *shape)`` over the ranks for the explicit step, param-shaped for the
+emulation; written only when the run carries one), and under ``--zero wus``
+the momentum gathered from the ranks' rows to the param-shaped tree every
+checkpoint stores (the quantized gather's error is dropped: it restarts at
+zero).  A load restores the residual when its shapes fit the run (the same
+mode and world), else starts it at zero, and re-chunks the momentum for a
+``wus`` run, so files cross modes both ways; ``meta["has_residual"]`` says
+whether the file carried one.
+
 Not ported: the orbax backend, whose ``orbax.checkpoint`` imports JAX (an
 orbax directory raises ``NotImplementedError`` with that reason, and
-``--ckpt-backend orbax`` exits from ``train/config.py``), and error-feedback
-residuals (ROADMAP.md item A9): a saved
-``residual`` subtree is read and dropped.
+``--ckpt-backend orbax`` exits from ``train/config.py``).
 """
 
 from __future__ import annotations
@@ -126,10 +135,16 @@ def save_checkpoint(
     best_acc1: float,
     is_best: bool,
     ft: Optional[Dict[str, Any]] = None,
+    momentum: Optional[Dict[str, Any]] = None,
+    residual: Optional[Dict[str, Any]] = None,
 ) -> str:
     """Atomic save of ``model``, the momentum of ``optimizer`` and the
     global ``step`` (the reference's rank-0 ``save_checkpoint``, one
     process here); returns the path.
+
+    ``momentum`` / ``residual``: JAX-layout trees that replace the
+    optimizer's momentum and add the error-feedback residual
+    (``GradSync.checkpoint_trees``, which every rank computes first).
 
     ``ft``: optional step-granular resume record (see ``FT_DEFAULTS``);
     omitted fields default to the epoch-boundary semantics.  Write
@@ -138,6 +153,10 @@ def save_checkpoint(
     sidecar, so the directory always holds one complete, verifiable
     checkpoint; the sequence is retried with bounded backoff on OSError."""
     state = state_trees(model, optimizer)
+    if momentum is not None:
+        state["momentum"] = momentum
+    if residual:
+        state["residual"] = residual
     state["step"] = np.asarray(step, np.int32)
     payload = {
         "epoch": int(epoch),
@@ -233,25 +252,27 @@ def _torch_state(model: torch.nn.Module, saved: Dict[str, Any], with_momentum: b
 
 
 def _load_msgpack(path: str, model: torch.nn.Module,
-                  optimizer: Optional[torch.optim.Optimizer]) -> Tuple[int, Dict[str, Any]]:
+                  optimizer: Optional[torch.optim.Optimizer], comm=None
+                  ) -> Tuple[int, Dict[str, Any]]:
     """Verify-then-deserialize one msgpack checkpoint file into ``model``
-    (and ``optimizer``'s momentum).  Corruption surfaces as
+    (and ``optimizer``'s momentum, or ``comm``'s rows of it under ``wus``,
+    and ``comm``'s residual).  Corruption surfaces as
     ``CheckpointCorruptError``; a verified file that does not fit the model
     raises as it is (an arch mismatch, not corruption)."""
     raw, verified = _read_verified(path)
+    wus = comm is not None and comm.wus
     try:
         tree = flax_msgpack.msgpack_restore(raw)
         saved = dict(tree["state"])
-        # Error-feedback residuals (quantized gradient sync) have no port
-        # yet (ROADMAP.md item A9): read and dropped.
-        saved.pop("residual", None)
-        sd, mom = _torch_state(model, saved, optimizer is not None)
+        residual = saved.pop("residual", None)
+        sd, mom = _torch_state(model, saved, optimizer is not None and not wus)
         step = int(np.asarray(saved["step"]))
         meta = {
             "epoch": int(tree["epoch"]),
             "arch": str(tree["arch"]),
             "best_acc1": float(tree["best_acc1"]),
             "ft": _ft_record(tree.get("ft")),
+            "has_residual": bool(residual),
         }
     except CheckpointCorruptError:
         raise
@@ -261,21 +282,25 @@ def _load_msgpack(path: str, model: torch.nn.Module,
         raise CheckpointCorruptError(
             f"checkpoint '{path}' failed to deserialize and carries no "
             f"sha256 sidecar to pinpoint corruption: {e}") from e
-    del raw, tree, saved
     with torch.no_grad():
         model.load_state_dict(sd)
-        if optimizer is not None:
+        if optimizer is not None and not wus:
             for name, p in model.named_parameters():
                 optimizer.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(mom[name])
+    if comm is not None:
+        comm.load(saved["momentum"] if wus else None, residual)
+    del raw, tree, saved
     return step, meta
 
 
 def load_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
-                    fallback: bool = True) -> Tuple[int, Dict[str, Any]]:
+                    fallback: bool = True, comm=None) -> Tuple[int, Dict[str, Any]]:
     """Restore a checkpoint file into ``model`` (and the momentum buffers of
-    ``optimizer``, when given); returns ``(step, meta)``, meta carrying
-    epoch / arch / best_acc1 and the ``ft`` record.
+    ``optimizer``, when given; ``comm``: the train step's ``GradSync``,
+    which takes the residual and, under ``wus``, the momentum); returns
+    ``(step, meta)``, meta carrying epoch / arch / best_acc1, the ``ft``
+    record and ``has_residual``.
 
     ``fallback``: when the latest ``checkpoint.msgpack`` fails sidecar
     verification (or a legacy file fails to parse), resume continues from
@@ -284,7 +309,7 @@ def load_checkpoint(path: str, model: torch.nn.Module,
     if os.path.isdir(path):
         raise NotImplementedError(ORBAX_MESSAGE)
     try:
-        return _load_msgpack(path, model, optimizer)
+        return _load_msgpack(path, model, optimizer, comm)
     except CheckpointCorruptError as e:
         prev = None
         if os.path.basename(path) == CHECKPOINT_NAME:
@@ -292,5 +317,5 @@ def load_checkpoint(path: str, model: torch.nn.Module,
         if fallback and prev and os.path.exists(prev):
             warnings.warn(f"latest checkpoint is corrupt; falling back to '{prev}' ({e})",
                           stacklevel=2)
-            return _load_msgpack(prev, model, optimizer)
+            return _load_msgpack(prev, model, optimizer, comm)
         raise

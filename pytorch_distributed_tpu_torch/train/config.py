@@ -6,9 +6,10 @@ plus ``--device`` (default ``cuda``).
 
 Every flag is parsed.  ``check_ported`` exits naming the ROADMAP item that
 will port a flag whose value differs from its default and whose layer is
-not ported yet: the gradient-communication stack beyond the bf16 wire
-(A9), fault tolerance beyond the in-step ``--nan-guard`` gate and the
-checkpoints (A11) and observability beyond the epoch CSV (A12).
+not ported yet: fault tolerance beyond the in-step ``--nan-guard`` gate and
+the checkpoints (A11) and observability beyond the epoch CSV (A12).  The
+gradient-communication flags (``--grad-compress``, ``--zero``,
+``--overlap``, ``--bucket-mb``) are ported with the JAX package's help.
 ``--dist-file`` is accepted and unused, as in the JAX package (the
 bootstrap reads the launcher's environment).  So are ``--fused-ce`` and
 ``--fused-ce-mode``: the LM family's loss head, which the JAX image
@@ -26,13 +27,11 @@ from typing import Optional
 from pytorch_distributed_tpu_torch import models
 from pytorch_distributed_tpu_torch.train.checkpoint import ORBAX_MESSAGE
 
-_GRAD_COMM = "A9 (gradient-communication stack: --zero, --grad-compress, --overlap)"
 _FT = "A11 (fault tolerance: rollback policy, --elastic, the preemption guard)"
 _OBS = "A12 (observability: metrics, heartbeats, profiles, ledgers, alerts)"
 
 # dest -> the ROADMAP item that will port it, for flags not ported yet.
 NOT_PORTED = {
-    **dict.fromkeys(("grad_compress", "zero", "overlap", "bucket_mb"), _GRAD_COMM),
     **dict.fromkeys(("ft_rollback_k", "ft_check_every", "ft_lr_backoff",
                      "preempt_signals", "elastic", "min_ranks", "rescale_lr"), _FT),
     **dict.fromkeys(("profile_dir", "profile_epochs", "profile_steps", "telemetry_csv",
@@ -41,9 +40,6 @@ NOT_PORTED = {
                      "flight_rec", "hang_timeout", "metrics_port", "alerts",
                      "step_attr"), _OBS),
 }
-# Values of those flags that are ported: "recipe decides" flags whose
-# explicit off value is the default behaviour, and the bf16 gradient wire.
-_PORTED_VALUES = {"grad_compress": ("none", "bf16"), "zero": ("none",)}
 
 
 @dataclasses.dataclass
@@ -177,13 +173,32 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
         "normalize per batch in C++; u8 uint8 to the card, normalized there; native C++ "
         "JPEG decode + crop per batch, uint8 to the card (--synthetic runs f32)")
     add("--grad-compress", default=d.grad_compress, choices=("none", "bf16", "int8", "fp8"),
-        dest="grad_compress", help="gradient wire format of data parallelism: bf16 on the "
-        "explicit step's wire, a bf16 rounding under DDP; unset = recipe default (int8 "
-        "and fp8 are not ported yet)")
-    add("--zero", default=d.zero, choices=("none", "wus"), help=_NOT_PORTED_HELP)
-    add("--overlap", default=d.overlap, choices=("none", "bucketed"), help=_NOT_PORTED_HELP)
+        dest="grad_compress",
+        help="gradient wire format for the DP sync: bf16 casts "
+        "the all-reduce operand (Horovod fp16-compression "
+        "analogue); int8/fp8 = per-block quantized all-reduce "
+        "with error feedback (ops/qcomm.py) — true wire "
+        "compression on the explicit-collectives step, numerics "
+        "emulation under GSPMD; unset = recipe default")
+    add("--zero", default=d.zero, choices=("none", "wus"),
+        help="ZeRO-style weight-update sharding "
+        "(arXiv:2004.13336): wus reduce-scatters gradients, "
+        "keeps optimizer state sharded 1/N over the data axis, "
+        "updates on the shard, and all-gathers the parameter "
+        "delta — ~(N-1)/N of optimizer+gradient bytes reclaimed "
+        "per device; composes with --grad-compress (both wire "
+        "hops quantized); unset = recipe default (none)")
+    add("--overlap", default=d.overlap, choices=("none", "bucketed"),
+        help="comm-overlap scheduler (parallel/overlap.py): "
+        "bucketed splits the explicit grad sync into "
+        "~--bucket-mb MiB reverse-autodiff buckets issued as "
+        "separate collectives that overlap the remaining "
+        "backward; bit-equal numerics (requires the "
+        "explicit-collectives step — horovod recipe, or "
+        "lm_pretrain pure-DP)")
     add("--bucket-mb", default=d.bucket_mb, type=float, dest="bucket_mb", metavar="MIB",
-        help=_NOT_PORTED_HELP)
+        help="target gradient bucket size in MiB for --overlap "
+        "bucketed (smaller = more overlap, more collectives)")
     add("--resume", default=d.resume, type=str, metavar="PATH",
         help="resume from a checkpoint file (either package's): weights, momentum, BN "
         "statistics and the exact step")
@@ -256,7 +271,7 @@ def check_ported(cfg: Config, parser: argparse.ArgumentParser) -> None:
     flags = {a.dest: a.option_strings[0] for a in parser._actions if a.option_strings}
     for dest, item in NOT_PORTED.items():
         value = getattr(cfg, dest)
-        if value != parser.get_default(dest) and value not in _PORTED_VALUES.get(dest, ()):
+        if value != parser.get_default(dest):
             raise SystemExit(f"{flags[dest]} is not ported to the PyTorch package yet: "
                              f"ROADMAP.md item {item}")
 

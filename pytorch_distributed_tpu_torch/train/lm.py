@@ -18,22 +18,36 @@
   package's format (``train/checkpoint.py``): every ``save_steps`` and at the
   end of ``fit`` into ``checkpoint_dir``, and ``resume`` to the exact step.
 
-Not ported yet (ROADMAP.md queue A): meshes and every parallel layout (the
-fused CE head's ``dp`` and ``tp`` variants with them), the observability
-and fault-tolerance layers, elastic membership and the background feeder
-thread.
+The gradient-communication stack (``train/gradsync.py``), as the JAX LM
+step runs it on one device: ``grad_compress`` ``bf16`` / ``int8`` / ``fp8``
+is the numerics emulation on the (clipped) gradient, with a param-shaped
+error-feedback residual; ``overlap="bucketed"`` takes the port of the JAX explicit step, the
+gradient synced per bucket by the local one-rank collectives (quantized
+twice under int8/fp8, the residual stacked ``(1, *shape)``) and clipped
+after; ``zero="wus"`` shards the momentum over a data axis of one, which
+changes nothing, as in JAX at world 1.  The residual rides in checkpoints.
+
+Not ported yet (ROADMAP.md queue A): data parallelism across ranks for the
+LM (A21), meshes and every parallel layout (the fused CE head's ``dp`` and
+``tp`` variants with them), the observability and fault-tolerance layers,
+elastic membership and the background feeder thread.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from pytorch_distributed_tpu_torch.ops import qcomm
 from pytorch_distributed_tpu_torch.ops.fused_ce import fused_ce_sums, resolve_fused_ce_mode
 from pytorch_distributed_tpu_torch.ops.loss import cross_entropy
+from pytorch_distributed_tpu_torch.parallel import overlap as overlap_lib
+from pytorch_distributed_tpu_torch.parallel import zero as zero_lib
 from pytorch_distributed_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from pytorch_distributed_tpu_torch.train.gradsync import GradSync
 from pytorch_distributed_tpu_torch.train.meters import StepMeters
 from pytorch_distributed_tpu_torch.train.optim import sgd
 
@@ -168,7 +182,9 @@ def lm_loss(model, tokens: torch.Tensor, fused_ce_chunks: int = 0
 def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
                        clip_grad_norm: float = 0.0, accum_steps: int = 1,
                        log_norms: bool = False, fused_ce_chunks: int = 0,
-                       fused_ce_mode: str = "auto"):
+                       fused_ce_mode: str = "auto", grad_compress: Optional[str] = None,
+                       zero: str = "none", overlap: str = "none",
+                       bucket_mb: float = overlap_lib.DEFAULT_BUCKET_MB):
     """``step(tokens [B, L], lr) -> metrics`` for one device.
 
     ``clip_grad_norm > 0`` rescales the gradients by ``min(1, clip /
@@ -180,13 +196,45 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
     (before clipping) and ``param_norm`` (after the update).
     ``fused_ce_chunks > 0`` takes the fused tied-head loss in that many row
     blocks (``fused_ce_mode``: the JAX variant rule, ``replicated`` on one
-    device).  Metrics are device scalars: ``loss`` and ``acc`` in percent.
+    device).  ``grad_compress``, ``zero``, ``overlap`` and ``bucket_mb``:
+    the gradient-communication stack (module docstring); ``step.comm``
+    holds its state.  Metrics are device scalars:
+    ``loss`` and ``acc`` in percent.
     """
+    zero_mode = zero_lib.resolve_zero(zero)
+    overlap_mode = overlap_lib.resolve_overlap(overlap)
+    explicit = overlap_mode == "bucketed"
+    if explicit:
+        unsupported = [
+            (f"accum_steps={accum_steps}", accum_steps > 1),
+            (f"fused_ce_chunks={fused_ce_chunks}", bool(fused_ce_chunks)),
+            (f"zero={zero_mode!r} (use the image trainer's explicit wus "
+             "path)", zero_mode != "none"),
+        ]
+        bad = [what for what, cond in unsupported if cond]
+        if bad:
+            raise ValueError(
+                "the explicit-collectives LM step (overlap/"
+                "explicit_collectives) supports the plain pure-DP step "
+                "only; got " + "; ".join(bad))
+    gc_mode, gc_cast = qcomm.resolve_mode(grad_compress, None)
+    if gc_mode != "none" and not explicit:
+        warnings.warn(
+            f"make_lm_train_step: grad_compress={gc_mode!r} under GSPMD is "
+            "a NUMERICS emulation only — the gradient psum stays f32 on the "
+            "wire (XLA owns the collective). Use the explicit-collectives "
+            "image path for true wire compression.",
+            UserWarning, stacklevel=2)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if fused_ce_chunks:
         resolve_fused_ce_mode(fused_ce_mode, model.embed.num_embeddings)
     params = [p for p in model.parameters() if p.requires_grad]
+    comm = None
+    if explicit or gc_mode in qcomm.QUANTIZED_MODES:
+        comm = GradSync(model, None, mode=gc_mode, cast_dtype=gc_cast, explicit=explicit,
+                        overlap=overlap_mode, bucket_mb=bucket_mb)
+    one = torch.ones((), device=params[0].device)
 
     def step(tokens: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
@@ -208,12 +256,23 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
             for p in params:
                 p.grad.mul_(inv)
             loss, acc = loss * inv, acc * inv
+        if explicit:
+            # The JAX explicit step: the gradient synced over the data axis
+            # (one rank) and divided by its size, then clipped.
+            comm.sync_explicit(one)
         grads = [p.grad for p in params]
         gnorm = _l2_norm(grads) if (log_norms or clip_grad_norm > 0.0) else None
         if clip_grad_norm > 0.0:
             scale = torch.clamp(clip_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
             for g in grads:
                 g.mul_(scale)
+        if not explicit:
+            # The JAX GSPMD step: the emulation on the clipped gradient.
+            if comm is not None:
+                comm.emulate_grads()
+            elif gc_cast is not None:
+                for p in params:
+                    p.grad = p.grad.to(gc_cast).float()
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
@@ -224,6 +283,7 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
                 metrics["param_norm"] = _l2_norm(params)
         return metrics
 
+    step.comm = comm
     return step
 
 
@@ -258,6 +318,10 @@ class LMTrainer:
     ``losses`` collect every step's host seconds as the meters measure
     them and its loss (a device scalar).
 
+    ``grad_compress``, ``zero``, ``overlap`` and ``bucket_mb`` go to the
+    train step (the gradient-communication stack); its residual is saved
+    and restored with the checkpoints.
+
     ``checkpoint_dir``: checkpoint every ``save_steps`` steps (0: only at the
     end of ``fit``) there.  ``resume``: a checkpoint file to restore the
     weights, the momentum and the step from; ``fit`` continues at
@@ -271,7 +335,9 @@ class LMTrainer:
                  accum_steps: int = 1, fused_ce_chunks: int = 0,
                  fused_ce_mode: str = "auto", momentum: float = 0.9,
                  weight_decay: float = 1e-4, checkpoint_dir: Optional[str] = None,
-                 save_steps: int = 0, resume: Optional[str] = None):
+                 save_steps: int = 0, resume: Optional[str] = None,
+                 grad_compress: Optional[str] = None, zero: Optional[str] = None,
+                 overlap: str = "none", bucket_mb: float = overlap_lib.DEFAULT_BUCKET_MB):
         self.model = model
         self.dataset = dataset
         self.batch_size = batch_size
@@ -282,7 +348,11 @@ class LMTrainer:
                                           clip_grad_norm=clip_grad_norm,
                                           accum_steps=accum_steps,
                                           fused_ce_chunks=fused_ce_chunks,
-                                          fused_ce_mode=fused_ce_mode)
+                                          fused_ce_mode=fused_ce_mode,
+                                          grad_compress=grad_compress,
+                                          zero=zero_lib.resolve_zero(zero), overlap=overlap,
+                                          bucket_mb=bucket_mb)
+        self.comm = self.step_fn.comm
         self.eval_dataset = eval_dataset
         self.eval_every = eval_every
         self.eval_batches = eval_batches
@@ -295,7 +365,7 @@ class LMTrainer:
         self.save_steps = save_steps
         self._start_step = 0
         if resume:
-            _, meta = load_checkpoint(resume, model, self.optimizer)
+            _, meta = load_checkpoint(resume, model, self.optimizer, comm=self.comm)
             ft = meta["ft"]
             self._start_step = max(int(ft["global_step"]), int(ft["step"]))
             if self._eval_fn is not None and float(meta["best_acc1"]) > 0:
@@ -306,9 +376,11 @@ class LMTrainer:
     def _save_checkpoint(self, completed: int, is_best: bool = False) -> None:
         """The best perplexity rides in the ``best_acc1`` slot; the LM is
         epochless, so step == global step restores the exact token stream."""
+        trees = self.comm.checkpoint_trees() if self.comm is not None else {}
         save_checkpoint(self.checkpoint_dir, self.model, self.optimizer, completed, 0,
                         "transformer_lm", self.best_ppl if self._eval_fn is not None else 0.0,
-                        is_best=is_best, ft={"step": completed, "global_step": completed})
+                        is_best=is_best, ft={"step": completed, "global_step": completed},
+                        **trees)
 
     def _tokens(self, ds, step: int) -> torch.Tensor:
         return torch.from_numpy(ds.batch(step, self.batch_size)).to(self.model.device)

@@ -38,24 +38,34 @@ global batch) the step takes one of the two JAX expressions:
   ranks after the step.  The GSPMD twin's BatchNorm is global already, so
   there, and without a group, ``sync_bn`` changes nothing.
 
-``int8``/``fp8`` wire formats, ZeRO and bucketed overlap belong to the
-gradient-communication stack (ROADMAP.md item A9).
+The gradient-communication stack (``train/gradsync.py``) rides on both:
+``grad_compress="int8"|"fp8"`` is the quantized all-reduce with error
+feedback on the explicit step and its numerics emulation on the averaged
+gradient under GSPMD; ``zero="wus"`` replaces the all-reduce (and DDP) by
+a reduce-scatter, the SGD on this rank's 1/N of every leaf and an
+all-gather; ``overlap="bucketed"`` (explicit only) starts each bucket's
+collective from the backward's hooks.  The JAX step's refusals come first,
+in its words.
 """
 
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Dict, Iterable, List, Optional
 
 import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
+from pytorch_distributed_tpu_torch.ops import qcomm
 from pytorch_distributed_tpu_torch.ops.loss import cross_entropy
 from pytorch_distributed_tpu_torch.ops.metrics import topk_correct
+from pytorch_distributed_tpu_torch.parallel import overlap as overlap_lib
+from pytorch_distributed_tpu_torch.parallel import zero as zero_lib
+from pytorch_distributed_tpu_torch.train.gradsync import GradSync
 
 Batch = Dict[str, torch.Tensor]
-WIRE_DTYPES = {None: None, "none": None, "bf16": torch.bfloat16}
 
 
 def _sum_hook(group, bucket):
@@ -75,21 +85,6 @@ def data_parallel(model, group) -> DistributedDataParallel:
                                   process_group=group, broadcast_buffers=False)
     net.register_comm_hook(group, _sum_hook)
     return net
-
-
-def _all_reduce_flat(tensors: List[torch.Tensor], group, wire: Optional[torch.dtype]):
-    """The tensors summed over ``group`` through one flat buffer (cast to
-    ``wire`` for the collective), returned in f32."""
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    if wire is not None:
-        flat = flat.to(wire)
-    dist.all_reduce(flat, group=group)
-    flat = flat.float()
-    out, i = [], 0
-    for t in tensors:
-        out.append(flat[i:i + t.numel()].view_as(t))
-        i += t.numel()
-    return out
 
 
 def _l2_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -114,35 +109,96 @@ def forward_and_sums(model, batch: Batch):
 def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 1,
                     log_norms: bool = False, guard_nonfinite: bool = False, group=None,
                     explicit_collectives: bool = False, grad_compress: Optional[str] = None,
-                    sync_bn: bool = False):
+                    sync_bn: bool = False, zero: str = "none", overlap: str = "none",
+                    bucket_mb: float = overlap_lib.DEFAULT_BUCKET_MB,
+                    wus_gather: str = "eager"):
     """``step(batch, lr) -> metrics`` (device scalars: ``loss``, ``acc1``,
     ``acc5`` in percent; ``nonfinite`` under ``guard_nonfinite``;
     ``grad_norm`` and ``param_norm`` under ``log_norms``).  ``group``: the
     process group of data parallelism (None: one device), with the GSPMD
     twin or, under ``explicit_collectives``, the explicit one, whose
-    BatchNorm ``sync_bn`` makes global."""
+    BatchNorm ``sync_bn`` makes global.
+
+    ``grad_compress``: ``none | bf16 | int8 | fp8``, the gradient wire (the
+    GSPMD twin's is an emulation of its numerics).  ``zero="wus"``:
+    weight-update sharding, this rank's momentum 1/N of the whole.
+    ``overlap="bucketed"`` (explicit step only): ~``bucket_mb``-MiB buckets,
+    each collective started as its gradients are ready.
+    ``wus_gather="deferred"`` (``wus`` and bucketed, f32 or bf16 wire):
+    the step's delta is gathered at the head of the next step, so the
+    parameters lag one step until ``step.comm.materialize()``.  The
+    explicit step's gradient sync and the stack's state ride on
+    ``step.comm`` (a ``GradSync``; None on the GSPMD twin without a
+    quantized mode or ``wus``), which checkpoints save and restore."""
+    mode, cast_dtype = qcomm.resolve_mode(grad_compress)
+    zero_mode = zero_lib.resolve_zero(zero)
+    overlap_mode = overlap_lib.resolve_overlap(overlap)
+    if overlap_mode == "bucketed" and not explicit_collectives:
+        raise ValueError(
+            "overlap='bucketed' schedules hand-written collectives and "
+            "requires explicit_collectives=True (under GSPMD, XLA owns "
+            "collective placement — there is nothing to bucket)")
+    if wus_gather not in ("eager", "deferred"):
+        raise ValueError(
+            f"wus_gather must be 'eager' or 'deferred', got {wus_gather!r}")
+    if wus_gather == "deferred":
+        if zero_mode != "wus" or overlap_mode != "bucketed":
+            raise ValueError(
+                "wus_gather='deferred' is the double-buffered ZeRO-WUS "
+                "delta gather — it requires zero='wus' and "
+                "overlap='bucketed'")
+        if mode in qcomm.QUANTIZED_MODES:
+            raise ValueError(
+                "wus_gather='deferred' supports the f32/bf16 delta wire "
+                "only: the quantized gather's error feedback is step-order"
+                "-dependent and cannot be staged across steps")
+    if zero_mode == "wus" and not isinstance(optimizer, torch.optim.SGD):
+        raise ValueError(
+            "zero='wus' implements the torch-parity SGD update on 1/N "
+            "shards; an optax tx cannot be chunked — drop one of them")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    if grad_compress not in WIRE_DTYPES:
-        raise ValueError(f"grad_compress {grad_compress!r}: none or bf16 (int8 and fp8 are "
-                         "ROADMAP.md item A9)")
-    wire = WIRE_DTYPES[grad_compress]
+    if mode != "none" and not explicit_collectives:
+        warnings.warn(
+            f"make_train_step: grad_compress={mode!r} under GSPMD is a "
+            "NUMERICS emulation only — the gradient all-reduce moves f32, "
+            "so the quantize/cast rounds already-synced values and does not "
+            "compress the collective wire format. Use "
+            "explicit_collectives=True for true compressed-wire gradient "
+            "sync (the Horovod-compression analogue).",
+            stacklevel=2,
+        )
     params = [p for p in model.parameters() if p.requires_grad]
     buffers = list(model.buffers())
     stats = [b for b in buffers if b.is_floating_point()]
+    wus = zero_mode == "wus"
+    comm = None
+    if explicit_collectives or mode in qcomm.QUANTIZED_MODES or wus:
+        comm = GradSync(model, group, mode=mode, cast_dtype=cast_dtype,
+                        explicit=explicit_collectives, zero=zero_mode, overlap=overlap_mode,
+                        bucket_mb=bucket_mb, wus_gather=wus_gather)
+    # The GSPMD twin is DDP, but under wus its all-reduce gives way to the
+    # reduce-scatter of GradSync: no DDP, the same global-batch BatchNorm.
     gspmd = group is not None and not explicit_collectives
-    net = data_parallel(model, group) if gspmd else model
-    if sync_bn and explicit_collectives and group is not None:
+    net = data_parallel(model, group) if gspmd and not wus else model
+    if (gspmd and wus) or (sync_bn and explicit_collectives and group is not None):
         model.set_bn_group(group)
+    hyper = optimizer.param_groups[0]
 
     def momentum_buffers() -> List[torch.Tensor]:
         return [optimizer.state.get(p, {}).get("momentum_buffer") for p in params]
 
     def step(batch: Batch, lr: float) -> Dict[str, torch.Tensor]:
-        net.train()
-        optimizer.zero_grad(set_to_none=True)
         if guard_nonfinite:
             old_buffers = [b.clone() for b in buffers]
+            old_params = [p.detach().clone() for p in params]
+            old_moms = [torch.zeros_like(p) if m is None else m.clone()
+                        for p, m in zip(params, momentum_buffers())]
+            old_comm = [t.clone() for t in comm.state_tensors()] if comm is not None else []
+        if comm is not None and comm.deferred:
+            comm.drain()  # the previous step's delta, at the head of this one
+        net.train()
+        optimizer.zero_grad(set_to_none=True)
         b = batch["images"].shape[0]
         if b % accum_steps:
             raise ValueError(f"batch dimension {b} is not divisible by accum_steps "
@@ -151,8 +207,11 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 
         for i in range(accum_steps):
             # Strided split: microbatch i = samples [i::accum_steps].
             mb = batch if accum_steps == 1 else {k: v[i::accum_steps] for k, v in batch.items()}
-            # DDP reduces once, after the last microbatch's backward.
-            defer = gspmd and i < accum_steps - 1
+            # DDP reduces once, after the last microbatch's backward; the
+            # bucket hooks fire during that one only.
+            defer = net is not model and i < accum_steps - 1
+            if comm is not None:
+                comm.arm(i == accum_steps - 1)
             with net.no_sync() if defer else contextlib.nullcontext():
                 mb_loss, mb_c1, mb_c5, mb_count = forward_and_sums(net, mb)
                 mb_loss.backward()  # .grad holds the sum over microbatches
@@ -162,44 +221,52 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 
             sums = torch.stack([loss_sum, c1, c5, count]).float()
             dist.all_reduce(sums, group=group)
             loss_sum, c1, c5, count = sums
-        if explicit_collectives:
+        want_norm = log_norms or guard_nonfinite
+        gnorm = None
+        if not explicit_collectives:
+            count = count.clamp_min(1.0)
+        if wus:
+            # The JAX local_step's reduce-scatter, chunked SGD and gather
+            # (GSPMD: the same semantics, the count clamped).
+            gnorm = comm.wus_step(count, lr, hyper["momentum"], hyper["weight_decay"],
+                                  want_norm)
+        elif explicit_collectives:
             # The JAX local_step: the local weighted sums on the wire, the
             # global count divides them in f32 (no clamp, as there).
-            grads = [p.grad for p in params]
-            if group is not None:
-                grads = _all_reduce_flat(grads, group, wire)
-            elif wire is not None:
-                grads = [g.to(wire).float() for g in grads]
-            for p, g in zip(params, grads):
-                p.grad = g / count
+            comm.sync_explicit(count)
         else:
-            count = count.clamp_min(1.0)
             for p in params:
                 p.grad.div_(count)
-                if wire is not None:
-                    p.grad = p.grad.to(wire).float()
-        gnorm = _l2_norm(p.grad for p in params) if (log_norms or guard_nonfinite) else None
+                if cast_dtype is not None:
+                    p.grad = p.grad.to(cast_dtype).float()
+            if comm is not None:
+                comm.emulate_grads()
+        if want_norm and gnorm is None:
+            gnorm = _l2_norm(p.grad for p in params)
         metrics = {"loss": loss_sum / count, "acc1": c1 * 100.0 / count,
                    "acc5": c5 * 100.0 / count}
-        if guard_nonfinite:
-            old_params = [p.detach().clone() for p in params]
-            old_moms = [torch.zeros_like(p) if m is None else m.clone()
-                        for p, m in zip(params, momentum_buffers())]
-        for pg in optimizer.param_groups:
-            pg["lr"] = lr
-        optimizer.step()
+        if not wus:
+            for pg in optimizer.param_groups:
+                pg["lr"] = lr
+            optimizer.step()
         if explicit_collectives and group is not None and stats:
             # BN running statistics: the ranks' EMAs averaged (JAX pmean).
             world = dist.get_world_size(group)
             with torch.no_grad():
-                for b_, avg in zip(stats, _all_reduce_flat(stats, group, None)):
+                summed = qcomm.sum_finish(qcomm.sum_start(stats, group),
+                                          [b_.shape for b_ in stats])
+                for b_, avg in zip(stats, summed):
                     b_.copy_(avg / world)
         if guard_nonfinite:
             bad = ~(torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm))
             with torch.no_grad():
                 for new, old in zip([p.data for p in params] + momentum_buffers() + buffers,
                                     old_params + old_moms + old_buffers):
-                    new.copy_(torch.where(bad, old, new))
+                    if new is not None:
+                        new.copy_(torch.where(bad, old, new))
+                if comm is not None:
+                    comm.set_state_tensors([torch.where(bad, old, new) for new, old in
+                                            zip(comm.state_tensors(), old_comm)])
             metrics["nonfinite"] = bad.float()
         if log_norms:
             metrics["grad_norm"] = gnorm
@@ -207,6 +274,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 
                 metrics["param_norm"] = _l2_norm(params)
         return metrics
 
+    step.comm = comm
     return step
 
 

@@ -20,10 +20,17 @@ global-batch BatchNorm the GSPMD twin always has; there, and without a
 process group, it is the JAX package's no-op.  As in the JAX trainer, the
 explicit step refuses it with ``--fused-convbn``.
 
+The gradient-communication stack (``--grad-compress int8|fp8``, ``--zero
+wus``, ``--overlap bucketed``, ``--bucket-mb``) goes to the train step,
+whose ``GradSync`` holds this rank's error-feedback residual and, under
+``wus``, its 1/N of the momentum; checkpoints gather and restore them in
+the JAX layout (every rank takes part, rank 0 writes), and a deferred
+delta gather is applied before every eval and checkpoint.
+
 Not ported yet, each exiting from ``train/config.py`` with its ROADMAP item:
-the gradient-communication stack beyond the bf16 wire (A9), the divergence
-rollback policy, elastic membership and the preemption guard (A11), and the
-observability layer (A12).  ``--nan-guard`` is ported as the in-step gate.
+the divergence rollback policy, elastic membership and the preemption guard
+(A11), and the observability layer (A12).  ``--nan-guard`` is ported as the
+in-step gate.
 """
 
 from __future__ import annotations
@@ -106,7 +113,9 @@ class Trainer:
                                           guard_nonfinite=cfg.nan_guard, group=group,
                                           explicit_collectives=explicit_collectives,
                                           grad_compress=cfg.grad_compress,
-                                          sync_bn=cfg.sync_bn)
+                                          sync_bn=cfg.sync_bn, zero=cfg.zero or "none",
+                                          overlap=cfg.overlap, bucket_mb=cfg.bucket_mb)
+        self.comm = self.train_step.comm
         self.eval_step = make_eval_step(self.model, group)
         self.feeder = DeviceFeeder(self.device)
         self.csv = EpochCSVLogger(cfg.epoch_csv if self.primary else None)
@@ -126,7 +135,7 @@ class Trainer:
         mid-epoch file reruns the same epoch from its step, an epoch-boundary
         file starts the next epoch."""
         cfg = self.cfg
-        _, meta = load_checkpoint(path, self.model, self.optimizer)
+        _, meta = load_checkpoint(path, self.model, self.optimizer, comm=self.comm)
         self.best_acc1 = float(meta["best_acc1"])
         ft = meta["ft"]
         self._resume_step = int(ft["step"])
@@ -152,7 +161,7 @@ class Trainer:
                 f"--pretrained: no weights at '{path}'; set PTD_TPU_PRETRAINED_DIR to a "
                 f"directory containing {self.cfg.arch}.msgpack (a checkpoint saved by this "
                 "framework)")
-        load_checkpoint(path, self.model, self.optimizer)
+        load_checkpoint(path, self.model, self.optimizer, comm=self.comm)
         self.log(f"=> using pre-trained model '{self.cfg.arch}' from '{path}'")
 
     def log(self, line: str) -> None:
@@ -169,13 +178,19 @@ class Trainer:
              ) -> Optional[str]:
         """Checkpoint to ``--checkpoint-dir``: at an epoch's end
         (``step_in_epoch`` 0) or after ``step_in_epoch`` steps of ``epoch``.
-        Rank 0 writes (and returns the path); every rank waits for it."""
+        Every rank gathers the gradient-communication state first (a
+        collective); rank 0 writes (and returns the path); every rank
+        waits for it."""
         cfg = self.cfg
         path = None
+        trees = {}
+        if self.comm is not None:
+            self.comm.materialize()
+            trees = self.comm.checkpoint_trees()
         if self.primary:
             path = save_checkpoint(cfg.checkpoint_dir, self.model, self.optimizer,
                                    self.global_step, epoch, cfg.arch, self.best_acc1, is_best,
-                                   ft=self._ft_record(epoch, step_in_epoch))
+                                   ft=self._ft_record(epoch, step_in_epoch), **trees)
         if self.ctx.group is not None:
             dist.barrier(group=self.ctx.group)
         return path
@@ -279,6 +294,8 @@ class Trainer:
     def validate(self) -> float:
         """Top-1 over the validation set (exact: padded slots carry weight
         0); prints the reference's summary line."""
+        if self.comm is not None:
+            self.comm.materialize()
         batch_time = AverageMeter("Time", ":6.3f")
         losses = AverageMeter("Loss", ":.4e")
         top1 = AverageMeter("Acc@1", ":6.2f")

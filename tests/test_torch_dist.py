@@ -199,7 +199,18 @@ def test_dist_file_is_accepted_and_unused(tmp_path):
 
 
 @pytest.mark.parametrize("wire", ["int8", "fp8"])
-def test_quantized_grad_compress_exits_naming_a9(wire):
-    with pytest.raises(SystemExit) as exc:
-        horovod_distributed.main(SMOKE_ARGS + ["--grad-compress", wire])
-    assert "ROADMAP.md item A9" in str(exc.value.code)
+def test_quantized_grad_compress_trains(wire, tmp_path, monkeypatch):
+    """``--grad-compress int8|fp8`` on the explicit step (no launcher: one
+    rank's local collectives), with ZeRO and bucketed overlap on top."""
+    monkeypatch.chdir(tmp_path)
+    for extra in ([], ["--zero", "wus", "--overlap", "bucketed", "--bucket-mb", "0.5"]):
+        trainer = horovod_distributed.run(SMOKE_ARGS + ["--grad-compress", wire,
+                                                        "--checkpoint-dir", str(tmp_path)]
+                                          + extra)
+        try:
+            comm = trainer.comm
+            assert comm.mode == wire and comm.explicit and len(trainer.losses) == 2
+            assert comm.wus == bool(extra) and (len(comm.buckets) > 1) == bool(extra)
+            assert all(torch.isfinite(x) for x in trainer.losses)
+        finally:
+            finish(trainer)

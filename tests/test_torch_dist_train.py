@@ -37,6 +37,17 @@ takes the r-th half of each, as the JAX mesh shards the global batch.  f32.
 - ``multiprocessing_distributed`` for one epoch at two ranks: disjoint
   sampler shards, the same metrics on both ranks, one checkpoint written by
   rank 0 only, gloo chosen.
+- The gradient-communication stack (batch 8; buckets of 0.01 MiB): the f32
+  ZeRO steps (explicit, deferred gather, GSPMD twin) and the f32 bucketed
+  explicit step against JAX's at the 3-image-step tolerances; int8 and fp8
+  (explicit, bucketed, ZeRO, the GSPMD emulation) at metrics rtol 2e-3 and
+  99% of all elements within 2e-3 of their tensor's largest + 2**-6
+  relative, every element within 5e-2 of it (an element at a rounding
+  boundary may quantize one level apart, and training carries it); their
+  first update on JAX's quantization levels (99% within 2**-16 of the
+  tensor's largest, where a level is at least 2**-8 of a block's);
+  bucketed and f32 ZeRO bitwise equal to their plain twins; each ZeRO
+  rank's momentum the JAX chunk layout's row.
 """
 
 import os
@@ -51,11 +62,15 @@ import pytest
 import torch
 
 from pytorch_distributed_tpu.models import resnet as jr
+from pytorch_distributed_tpu.ops import qcomm as jq
 from pytorch_distributed_tpu.parallel import MeshSpec, build_mesh
+from pytorch_distributed_tpu.parallel import overlap as jo
+from pytorch_distributed_tpu.parallel import zero as jz
 from pytorch_distributed_tpu.train.optim import sgd_init
 from pytorch_distributed_tpu.train.state import TrainState
 from pytorch_distributed_tpu.train.steps import make_train_step as jax_train_step
 from pytorch_distributed_tpu_torch.models import resnet as tr
+from pytorch_distributed_tpu_torch.parallel import zero
 from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.train.steps import make_train_step
 from pytorch_distributed_tpu_torch.utils.convert import resnet_state_dict_from_jax
@@ -71,7 +86,28 @@ CASES = {"gspmd_fused": dict(fused=True, explicit=False, wire=None, accum=2, bat
                                      batch=32),
          "explicit_sync_bn": dict(fused=False, explicit=True, wire=None, accum=1, batch=8,
                                   sync_bn=True)}
-WIRE_CASES = sorted(k for k, c in CASES.items() if c["wire"])
+# The gradient-communication stack: quantized wires, ZeRO weight-update
+# sharding and bucketed overlap (buckets of 0.01 MiB: ~10 over the tiny
+# ResNet's 29 leaves).
+A9 = dict(fused=False, accum=1, batch=8)
+CASES.update({
+    "explicit_f32": dict(A9, explicit=True, wire=None),
+    "explicit_f32_bucketed": dict(A9, explicit=True, wire=None, overlap="bucketed"),
+    "explicit_int8": dict(A9, explicit=True, wire="int8"),
+    "explicit_fp8": dict(A9, explicit=True, wire="fp8"),
+    "explicit_int8_bucketed": dict(A9, explicit=True, wire="int8", overlap="bucketed"),
+    "explicit_wus": dict(A9, explicit=True, wire=None, zero="wus"),
+    "explicit_wus_int8": dict(A9, explicit=True, wire="int8", zero="wus"),
+    "explicit_wus_bucketed_deferred": dict(A9, explicit=True, wire=None, zero="wus",
+                                           overlap="bucketed", wus_gather="deferred"),
+    "gspmd_int8": dict(A9, explicit=False, wire="int8", accum=2),
+    "gspmd_wus": dict(A9, explicit=False, wire=None, zero="wus", accum=2),
+})
+BUCKET_MB = 0.01
+WIRE_CASES = sorted(k for k, c in CASES.items() if c["wire"] == "bf16")
+QUANTIZED_CASES = sorted(k for k, c in CASES.items() if c["wire"] in ("int8", "fp8"))
+A9_F32_CASES = sorted(k for k, c in CASES.items()
+                      if c["wire"] is None and (c.get("zero") or c.get("overlap")))
 
 WORKER = r'''
 import os, sys
@@ -84,8 +120,10 @@ from pytorch_distributed_tpu_torch.models import resnet as tr
 from pytorch_distributed_tpu_torch.parallel import initialize, shutdown
 from pytorch_distributed_tpu_torch.recipes import multiprocessing_distributed as mpd
 from pytorch_distributed_tpu_torch.train import trainer as trainer_mod
+from pytorch_distributed_tpu_torch.train.gradsync import momentum_bytes
 from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.train.steps import make_train_step
+from pytorch_distributed_tpu_torch.utils.convert import resnet_state_dict_from_jax
 
 inp = torch.load(os.path.join(out, "inputs.pt"))
 ctx = initialize(device="cpu")
@@ -98,15 +136,25 @@ for name, case in inp["cases"].items():
     step = make_train_step(model, opt, accum_steps=case["accum"],
                            log_norms=True, guard_nonfinite=True, group=ctx.group,
                            explicit_collectives=case["explicit"], grad_compress=case["wire"],
-                           sync_bn=case.get("sync_bn", False))
+                           sync_bn=case.get("sync_bn", False), zero=case.get("zero", "none"),
+                           overlap=case.get("overlap", "none"), bucket_mb=inp["bucket_mb"],
+                           wus_gather=case.get("wus_gather", "eager"))
+    comm = step.comm
     metrics, half = [], case["batch"] // 2
     for b, lr in zip(inp["batches"][case["batch"]], inp["lrs"]):
         local = {k: v[half * rank:half * (rank + 1)] for k, v in b.items()}
         metrics.append({k: float(v) for k, v in step(local, lr).items()})
         if len(metrics) == 1:  # the first step's buffer: the synced gradient + wd * w
-            momentum1 = {n: opt.state[p]["momentum_buffer"].clone()
-                         for n, p in model.named_parameters()}
-    res[name] = {"metrics": metrics, "state": dict(model.state_dict()), "momentum1": momentum1}
+            if comm is not None and comm.wus:  # gathered from the ranks' rows
+                momentum1 = resnet_state_dict_from_jax(comm.checkpoint_trees()["momentum"], None)
+            else:
+                momentum1 = {n: opt.state[p]["momentum_buffer"].clone()
+                             for n, p in model.named_parameters()}
+    if comm is not None:
+        comm.materialize()  # a deferred gather's last delta
+    res[name] = {"metrics": metrics, "state": dict(model.state_dict()), "momentum1": momentum1,
+                 "momentum_numel": momentum_bytes(opt, comm) // 4,
+                 "buckets": len(comm.buckets) if comm is not None else None}
 shutdown(ctx)
 
 # One recipe epoch at two ranks, through its own bootstrap.
@@ -143,23 +191,43 @@ def _batches(n=3, batch=8, seed=4):
              "weights": weights} for _ in range(n)]
 
 
-def _jax_run(variables, batches, fused, accum=2, sync_bn=False, **kw):
+def _jax_run(variables, batches, fused, accum=2, sync_bn=False, zero="none",
+             wus_gather="eager", **kw):
     mesh = build_mesh(MeshSpec(("data",), (2,)), jax.devices()[:2])
     jm = jr.ResNet(block_cls=jr.Bottleneck, fused_convbn=fused,
                    bn_axis_name="data" if sync_bn else None, **TINY)
     v = jax.tree_util.tree_map(jnp.asarray, variables)
-    state = TrainState.create(v, sgd_init(v["params"]))
+    mode, explicit = kw.get("grad_compress") or "none", kw["explicit_collectives"]
+    momentum = sgd_init(v["params"])
+    if zero == "wus" and explicit:
+        momentum = jz.init_wus_momentum(v["params"], 2, quantized=mode in ("int8", "fp8"))
+        if wus_gather == "deferred":
+            momentum["pending"] = jo.init_pending(v["params"], 2)
+    residual = jq.init_residual(v["params"], mode, explicit=explicit, n_data=2)
+    state = TrainState.create(v, momentum, residual=residual)
     jstep = jax_train_step(jm, mesh, accum_steps=accum, log_norms=True, guard_nonfinite=True,
-                           **kw)
+                           zero=zero, wus_gather=wus_gather, params=v["params"],
+                           bucket_mb=BUCKET_MB, **kw)
+
+    def param_shaped(momentum, params):
+        if jz.is_wus_momentum(momentum):
+            return jz.gather_momentum(momentum, params)
+        return momentum
+
     metrics = []
     for b, rate in zip(batches, LRS):
         state, m = jstep(state, {k: jnp.asarray(x) for k, x in b.items()}, jnp.float32(rate))
         metrics.append({k: float(x) for k, x in m.items()})
         if len(metrics) == 1:
-            momentum1 = resnet_state_dict_from_jax(jax.device_get(state.momentum), None)
+            host = jax.device_get(state)
+            momentum1 = resnet_state_dict_from_jax(param_shaped(host.momentum, host.params),
+                                                   None)
+    host = jax.device_get(state)
+    params = host.params
+    if wus_gather == "deferred":
+        params = jo.materialize_params(params, host.momentum["pending"])
     return {"metrics": metrics, "momentum1": momentum1,
-            "state": resnet_state_dict_from_jax(jax.device_get(state.params),
-                                                jax.device_get(state.batch_stats))}
+            "state": resnet_state_dict_from_jax(params, host.batch_stats)}
 
 
 @pytest.fixture(scope="module")
@@ -172,7 +240,7 @@ def runs(tmp_path_factory):
         jax.random.PRNGKey(7), jnp.zeros((1, 8, 8, 3)), train=False))
     batches = {8: _batches(), 32: _batches(batch=32, seed=5)}
     state = resnet_state_dict_from_jax(variables["params"], variables["batch_stats"])
-    torch.save({"state": state, "lrs": LRS, "tiny": TINY, "cases": CASES,
+    torch.save({"state": state, "lrs": LRS, "tiny": TINY, "cases": CASES, "bucket_mb": BUCKET_MB,
                 "batches": {n: [{k: torch.from_numpy(v) for k, v in b.items()} for b in bs]
                             for n, bs in batches.items()}},
                out / "inputs.pt")
@@ -185,7 +253,9 @@ def runs(tmp_path_factory):
                               stderr=subprocess.STDOUT, text=True) for r in range(2)]
     try:
         want = {name: _jax_run(variables, batches[c["batch"]], c["fused"], accum=c["accum"],
-                               sync_bn=c.get("sync_bn", False),
+                               sync_bn=c.get("sync_bn", False), zero=c.get("zero", "none"),
+                               wus_gather=c.get("wus_gather", "eager"),
+                               overlap=c.get("overlap", "none"),
                                explicit_collectives=c["explicit"], grad_compress=c["wire"])
                 for name, c in CASES.items()}
         model = tr.ResNet(block_cls=tr.Bottleneck, device="cpu", **TINY)
@@ -195,7 +265,7 @@ def runs(tmp_path_factory):
         world1 = ([{k: float(x) for k, x in step({k: torch.from_numpy(v) for k, v in b.items()},
                                                  rate).items()}
                    for b, rate in zip(batches[8], LRS)], dict(model.state_dict()))
-        logs = [p.communicate(timeout=240)[0] for p in procs]
+        logs = [p.communicate(timeout=400)[0] for p in procs]
     finally:
         for p in procs:
             p.kill()
@@ -321,3 +391,111 @@ def test_recipe_checkpoint_written_by_rank_zero_only(runs):
         p.name for p in ckpt.iterdir() if p.suffix == ".msgpack") == ["checkpoint.msgpack"]
     assert (runs["out"] / "epochs0.csv").exists() and not (runs["out"] / "epochs1.csv").exists()
     assert "Epoch: [0]" in runs["logs"][0] and "Epoch: [0]" not in runs["logs"][1]
+
+
+@pytest.mark.parametrize("case", A9_F32_CASES)
+def test_f32_zero_and_bucketed_cases_match_jax(runs, case):
+    """f32 ZeRO (explicit and GSPMD twin, deferred gather included) and the
+    bucketed explicit step against the JAX steps with the same modes: the
+    3-image-step tolerances, as the plain steps."""
+    want = runs["want"][case]
+    for rank in runs["ranks"]:
+        _close(rank[case]["metrics"], rank[case]["state"], want["metrics"], want["state"],
+               mrtol=1e-4, atol=1e-4, rtol=1e-3)
+
+
+def _close_quantized(got_metrics, got_state, want_metrics, want_state):
+    """Three steps with int8 or fp8 sync.  Each side's local gradient sums
+    differ from the other's by summation order, so an element at a rounding
+    boundary may quantize one step apart; training then amplifies it.  The
+    metrics agree to 2e-3 (relative), 99% of all elements to the bf16 row's
+    atol 2e-3 of their tensor's largest + rtol 2**-6, every element to 5e-2
+    of its tensor's largest."""
+    assert [sorted(g) for g in got_metrics] == [sorted(w) for w in want_metrics]
+    for g, w in zip(got_metrics, want_metrics):
+        assert g["nonfinite"] == w["nonfinite"] == 0.0
+        np.testing.assert_allclose([g[k] for k in sorted(g)], [w[k] for k in sorted(w)],
+                                   rtol=2e-3, atol=1e-6)
+    near = total = 0
+    for name, t in got_state.items():
+        got, want = t.numpy(), want_state[name].numpy()
+        top = max(float(np.abs(want).max()), 1e-6)
+        err = np.abs(got - want)
+        near += int((err <= 2e-3 * top + 2.0 ** -6 * np.abs(want)).sum())
+        total += want.size
+        assert err.max() <= 5e-2 * top, name
+    assert near >= 0.99 * total, f"{near} of {total} elements near"
+
+
+@pytest.mark.parametrize("case", QUANTIZED_CASES)
+def test_quantized_cases_match_jax(runs, case):
+    """int8 and fp8: the explicit step's EQuARX all-reduce (monolithic and
+    bucketed), ZeRO over the quantized reduce-scatter and all-gather, and the
+    GSPMD twin's emulation, against JAX's 2-device steps."""
+    want = runs["want"][case]
+    for rank in runs["ranks"]:
+        _close_quantized(rank[case]["metrics"], rank[case]["state"], want["metrics"],
+                         want["state"])
+
+
+@pytest.mark.parametrize("case", QUANTIZED_CASES)
+def test_first_update_carries_the_jax_quantization(runs, case):
+    """The wire itself: the first step's momentum buffer is the synced
+    gradient plus ``1e-4 * w``, a quantization level times its block's
+    scale.  Both sides quantize the same local sums (explicit) or averaged
+    gradient (GSPMD) up to summation order, which moves a scale by a few
+    ulps, so nearly every element sits on JAX's level: within 2**-16 of its
+    tensor's largest, where a level is at least 2**-8 of a block's largest
+    (int8: 1/127; fp8 e4m3: 1/448 at the top, coarser relative below); an
+    element at a rounding boundary may take the neighbouring level.  An f32
+    wire, or one quantization where JAX quantizes twice, moves nearly every
+    element off its level and fails the count."""
+    want = runs["want"][case]["momentum1"]
+    for rank in runs["ranks"]:
+        got, same, total = rank[case]["momentum1"], 0, 0
+        for name, w in want.items():
+            g, w = got[name].numpy(), w.numpy()
+            err = np.abs(g - w)
+            same += int((err <= 2.0 ** -16 * np.abs(w).max()).sum())
+            total += w.size
+            assert err.max() <= 2.0 ** -4 * np.abs(w).max(), name
+        assert same >= 0.99 * total, f"{same} of {total} elements on JAX's level"
+
+
+@pytest.mark.parametrize("plain,twin", [("explicit_f32", "explicit_f32_bucketed"),
+                                        ("explicit_int8", "explicit_int8_bucketed"),
+                                        ("explicit_f32", "explicit_wus"),
+                                        ("gspmd_unfused", "gspmd_wus")])
+def test_bucketed_and_f32_zero_equal_their_plain_twins_bitwise(runs, plain, twin):
+    """At two ranks a sum has one order, and the bucketed and ZeRO stages do
+    per element what the plain ones do: the same bits of the weights,
+    statistics and metrics.  The gradient norm alone is reduced in another
+    order under ZeRO (each rank's chunks, then over the ranks, as in JAX):
+    rtol 1e-6."""
+    for rank in runs["ranks"]:
+        a, b = rank[plain], rank[twin]
+        for ma, mb in zip(a["metrics"], b["metrics"]):
+            assert {k: v for k, v in ma.items() if k != "grad_norm"} == \
+                {k: v for k, v in mb.items() if k != "grad_norm"}
+            assert ma["grad_norm"] == pytest.approx(mb["grad_norm"], rel=1e-6)
+        for name, t in a["state"].items():
+            assert torch.equal(t, b["state"][name]), name
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if CASES[c].get("zero") == "wus"])
+def test_zero_momentum_is_one_chunk_of_the_jax_layout_per_rank(runs, case):
+    """Each rank holds its row: ``chunk_layout``'s chunk of every leaf at 2
+    ranks, half of the replicated momentum plus the padding."""
+    model = tr.ResNet(block_cls=tr.Bottleneck, device="cpu", **TINY)
+    sizes = [p.numel() for p in model.parameters()]
+    want = sum(zero.chunk_size(n, 2) for n in sizes)
+    assert want == sum(jz.chunk_size(n, 2) for n in sizes)
+    for rank in runs["ranks"]:
+        assert rank[case]["momentum_numel"] == want
+    assert want <= sum(sizes) / 2 + 2 * len(sizes) * 256
+
+
+def test_bucketed_cases_make_several_buckets(runs):
+    for case in ("explicit_f32_bucketed", "explicit_int8_bucketed",
+                 "explicit_wus_bucketed_deferred"):
+        assert runs["ranks"][0][case]["buckets"] > 3

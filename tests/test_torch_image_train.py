@@ -227,13 +227,13 @@ def test_recipe_trains_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,reason", [
-    (["--zero", "wus"], "ROADMAP.md item A9"), (["--grad-compress", "int8"], "ROADMAP.md item A9"),
-    (["--overlap", "bucketed"], "ROADMAP.md item A9"), (["--elastic"], "ROADMAP.md item A11"),
+    (["--min-ranks", "2"], "ROADMAP.md item A11"), (["--mfu"], "ROADMAP.md item A12"),
+    (["--rescale-lr", "linear"], "ROADMAP.md item A11"), (["--elastic"], "ROADMAP.md item A11"),
     (["--ckpt-backend", "orbax"], "orbax.checkpoint imports JAX"),
     (["--profile-dir", "p"], "ROADMAP.md item A12"),
     (["--ft-rollback-k", "5"], "ROADMAP.md item A11"),
     (["--metrics-jsonl", "m.jsonl"], "ROADMAP.md item A12"),
-    (["--grad-compress", "fp8"], "ROADMAP.md item A9"), (["-a", "vgg16"], "ROADMAP.md item A10")])
+    (["--hb-dir", "hb"], "ROADMAP.md item A12"), (["-a", "vgg16"], "ROADMAP.md item A10")])
 def test_unported_flags_exit_naming_their_item(flag, reason):
     with pytest.raises(SystemExit) as exc:
         tpu_native.main(TINY_ARGS + flag)
