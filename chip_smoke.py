@@ -2,8 +2,8 @@
 """Run the PyTorch port's serving, LM training and image training paths,
 their checkpoints, image training from an ImageFolder tree on disk, the
 data-parallel image recipes, the fused CE head, int8 weights,
-speculative decoding and the gradient-communication stack, on one NVIDIA
-H100 and check them.
+speculative decoding, the gradient-communication stack and the rest of the
+image zoo, on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -190,6 +190,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     losses.  Prints each variant's step against its baseline (the bf16
     wire; phase 17's unfused LM step), the sync stage alone and the
     bucket count.
+21. the rest of the image zoo (``models/{simple,densenet,mobilenet,extra,
+    inception,vit}.py``): every one of the 29 archs beyond the ResNets built
+    on the card at its published width, one bf16 train step at b16 (64 px;
+    Inception-v3 96) with a finite loss, and its f32 eval logits (TF32 off)
+    within 1e-3 of the largest of the CPU's for the same weights and images;
+    ``recipes.tpu_native`` with ``-a`` vgg16_bn (b64), densenet121 (b128),
+    mobilenet_v2 (b128), inception_v3 (299x299, b64), shufflenet_v2_x1_0
+    (b128) and vit_b_16 (b64), bf16, synthetic, 3 steps and one eval batch
+    each with finite train losses, then its train step alone timed (median of 3
+    synchronised steps; prints ms and images/s); ``multiprocessing_distributed
+    -a mobilenet_v2`` (BatchNorm and dropout) at 2 gloo ranks of b64 on the
+    card against 1 rank of b128 over NCCL, f32, TF32 off, one step at lr 0.01, within
+    phase 16's ``WORLD_*`` limits; none of K1-K5 launches in the phase.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
@@ -252,6 +265,11 @@ from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.train.steps import make_train_step
 from pytorch_distributed_tpu_torch.train.trainer import Trainer
 from pytorch_distributed_tpu_torch.utils.convert import momentum_state_dict
+
+
+# K1-K5's wrappers, each counting its launches in ``.launches``.
+KERNEL_WRAPPERS = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv,
+                   fused_dgrad_wgrad, fused_dgrad_wgrad_3x3)
 
 
 def _ms(fn, iters, warmup=2):
@@ -374,8 +392,7 @@ def _top2_gaps(logits):
 def serving_engine_phase(dev, card, lm, kv_blocks=385, n_requests=64, n_dense=8,
                          entry_requests=16):
     """Phase 12: the paged continuous-batching engine at the width ``lm``."""
-    kernels = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv,
-               fused_dgrad_wgrad, fused_dgrad_wgrad_3x3)
+    kernels = KERNEL_WRAPPERS
     for k in kernels:
         k.launches = 0
     torch.cuda.empty_cache()
@@ -1032,12 +1049,32 @@ def layer_check(ctx, dev, n=256) -> dict:
     return errs
 
 
+_PORTS_GIVEN: set = set()
+
+
 def _free_port() -> int:
+    """A free TCP port on 127.0.0.1 for a rendezvous store, drawn below
+    Linux's default ephemeral range (32768-60999), and never the same one
+    twice in this process.  A port from ``bind(0)`` lies inside that range,
+    where NCCL's and gloo's listeners and every outgoing connection of the
+    workers started meanwhile can take it before the store binds it
+    (EADDRINUSE)."""
+    import random
     import socket
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    rng = random.Random()  # seeded from the OS: each process draws its own
+    for _ in range(1000):
+        port = rng.randrange(20000, 32768)
+        if port in _PORTS_GIVEN:
+            continue
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        _PORTS_GIVEN.add(port)
+        return port
+    raise RuntimeError("no free TCP port in 20000-32767")
 
 
 def _launch(name, out, args, flags=(), env=None, torchrun=False):
@@ -1092,11 +1129,11 @@ def dp_phase(card, steps=3, batch=256, per_step=(33, 13)):
     common = dp_args(steps, batch)
     launches, results = [0, 0], {}
     try:
-        # The two timed recipes run alone; the others two at a time on the
-        # card (their launch counts and results are per process).
+        # The two timed recipes run alone; the others two or three at a time
+        # on the card (their launch counts and results are per process).
         for group in (("distributed",), ("tpu_native",),
-                      ("apex_distributed", "multiprocessing_distributed"),
-                      ("dataparallel", "horovod_distributed"), ("distributed_slurm_main",)):
+                      ("apex_distributed", "multiprocessing_distributed", "dataparallel"),
+                      ("horovod_distributed", "distributed_slurm_main")):
             procs, t0 = [], time.perf_counter()
             for name in group:
                 out = os.path.join(root, name)
@@ -1273,25 +1310,37 @@ def world_invariance(card, root, common, steps=3, batch=256, per_step=(33, 13)):
     layers over the ranks against one rank (``layer_check``)."""
     f32 = common + ["--precision", "fp32"]
     out1 = os.path.join(root, "world1")
+    runs = (("sound", ()), ("control: per-rank BatchNorm", ("--per-rank-bn",)),
+            ("control: K4/K5 vectors from local sums", ("--local-k45-vectors",)))
+
+    def world2(control):
+        out2 = os.path.join(root, "world2" + "".join(control))
+        port = _free_port()
+        return [_launch("multiprocessing_distributed", out2,
+                        f32 + ["--checkpoint-dir", os.path.join(out2, "ckpt")],
+                        ("--tf32-off", "--layer-check", *control),
+                        {"PTD_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                         "PTD_TPU_NUM_PROCESSES": "2", "PTD_TPU_PROCESS_ID": str(r)})
+                for r in range(2)]
+
+    # Two runs at a time share the card: world 1 beside the sound world 2,
+    # then the two controls (four processes).
+    t0 = time.perf_counter()
     _wait([_launch("multiprocessing_distributed", out1,
                    f32 + ["--checkpoint-dir", os.path.join(out1, "ckpt")], ("--tf32-off",),
-                   {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}"})], "world 1 f32")
+                   {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}"})] + world2(()),
+          "world 1 f32 and world 2 f32 (sound)")
+    pair_s = {"sound": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    _wait(world2(runs[1][1]) + world2(runs[2][1]), "world 2 f32 (both controls)")
+    pair_s[runs[1][0]] = pair_s[runs[2][0]] = time.perf_counter() - t0
     with open(os.path.join(out1, "result0.json")) as f:
         r1 = json.load(f)
     s1 = torch.load(os.path.join(out1, "state.pt"))
     want_launches, failed = [per_step[0] * steps, per_step[1] * steps], []
-    for tag, control in (("sound", ()), ("control: per-rank BatchNorm", ("--per-rank-bn",)),
-                         ("control: K4/K5 vectors from local sums", ("--local-k45-vectors",))):
+    for tag, control in runs:
         out2 = os.path.join(root, "world2" + "".join(control))
-        port = _free_port()
-        t0 = time.perf_counter()
-        _wait([_launch("multiprocessing_distributed", out2,
-                       f32 + ["--checkpoint-dir", os.path.join(out2, "ckpt")],
-                       ("--tf32-off", "--layer-check", *control),
-                       {"PTD_TPU_COORDINATOR": f"127.0.0.1:{port}",
-                        "PTD_TPU_NUM_PROCESSES": "2", "PTD_TPU_PROCESS_ID": str(r)})
-               for r in range(2)], f"world 2 f32 ({tag})")
-        w2_s = time.perf_counter() - t0
+        w2_s = pair_s[tag]
         r2 = []
         for r in range(2):
             with open(os.path.join(out2, f"result{r}.json")) as f:
@@ -1302,8 +1351,9 @@ def world_invariance(card, root, common, steps=3, batch=256, per_step=(33, 13)):
         layer = max(max(r["layer_err"].values()) for r in r2)
         within = loss_rel <= WORLD_LOSS_REL and worst <= WORLD_WEIGHT_ABS and layer <= WORLD_LAYER
         print(f"[dp] world invariance ({tag}), f32 TF32 off, {steps} steps: 2 ranks x "
-              f"b{batch // 2} over {r2[0]['backend']} on one card ({w2_s} s) vs 1 rank x "
-              f"b{batch} over {r1['backend']}: losses {r2[0]['losses']} vs {r1['losses']} "
+              f"b{batch // 2} over {r2[0]['backend']} on one card (the pair side by side: "
+              f"{w2_s} s) vs 1 rank x b{batch} over {r1['backend']}: losses {r2[0]['losses']} "
+              f"vs {r1['losses']} "
               f"(max rel {loss_rel}, limit {WORLD_LOSS_REL}); rank losses equal "
               f"{r2[0]['losses'] == r2[1]['losses']}; weights and statistics max abs diff "
               f"{worst} (limit {WORLD_WEIGHT_ABS}); K4/K5 layers over the 2 ranks vs 1, "
@@ -1566,8 +1616,7 @@ def engine_variants_phase(dev, card, lm, kv_blocks=385, n_requests=16, n_dense=8
     speculative draft, on a trace cut to ``n_requests``."""
     from pytorch_distributed_tpu_torch.models.quant import quantize_state_dict
 
-    kernels = (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv,
-               fused_dgrad_wgrad, fused_dgrad_wgrad_3x3)
+    kernels = KERNEL_WRAPPERS
     for k in kernels:
         k.launches = 0
     torch.cuda.empty_cache()
@@ -2031,6 +2080,185 @@ def a9_phase(dev, card, cfg, lm_base_ms, TB=4, TL=4096, steps=8, per_step=(33, 1
         raise SystemExit("phase 20: " + "; ".join(failed))
     k123 = [sum(x[i] for x in lm) for i in range(3)]
     return tuple(k123) + tuple(k45)
+
+
+# Phase 21: the rest of the image zoo (ROADMAP A10's single-device archs).
+ZOO_REPRESENTATIVES = (("vgg16_bn", 224, 64), ("densenet121", 224, 128),
+                       ("mobilenet_v2", 224, 128), ("inception_v3", 299, 64),
+                       ("shufflenet_v2_x1_0", 224, 128), ("vit_b_16", 224, 64))
+
+
+def zoo_sweep(dev, card, size=64, batch=16, eval_batch=2, classes=1000):
+    """Every arch beyond the ResNets, built on ``dev`` at its published width:
+    one bf16 train step of ``batch`` (finite loss), then its f32 eval logits
+    on ``dev`` (TF32 off) against the CPU's for the same weights and images,
+    within 1e-3 of their largest (``size`` px; Inception-v3 at least 96)."""
+    cpu = torch.device("cpu")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    worst, rows = 0.0, []
+    for name in models.model_names():
+        if models.is_resnet(name):
+            continue
+        side = max(size, 96) if name == "inception_v3" else size
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(0)
+        model = models.create_model(name, num_classes=classes, dtype=torch.bfloat16,
+                                    image_size=side, device=dev).init_weights(g)
+        weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        n_params = sum(p.numel() for p in model.parameters())
+        step = make_train_step(model, sgd(model.parameters()))
+        batch_d = {"images": torch.randn(batch, side, side, 3, device=dev, generator=g),
+                   "labels": torch.randint(0, classes, (batch,), device=dev, generator=g),
+                   "weights": torch.ones(batch, device=dev)}
+        loss = float(step(batch_d, 0.01)["loss"])
+        del model, step, batch_d
+        x = torch.randn(eval_batch, side, side, 3, device=dev, generator=g)
+        outs = []
+        for where in (dev, cpu):
+            m = models.create_model(name, num_classes=classes, image_size=side, device=where)
+            m.load_state_dict({k: v.to(where) for k, v in weights.items()})
+            with torch.no_grad():
+                outs.append(m.eval()(x.to(where)).float().cpu())
+            del m
+        err = ((outs[0] - outs[1]).abs().max() / outs[1].abs().max()).item()
+        worst = max(worst, err)
+        ok = math.isfinite(loss) and err <= 1e-3
+        rows.append((name, ok))
+        print(f"[zoo] {name}: {n_params} parameters, {side}x{side}; bf16 train step b{batch} "
+              f"loss {loss}; f32 eval logits (b{eval_batch}) card vs CPU: max diff / max "
+              f"{err} (limit 1e-3); {time.perf_counter() - t0} s")
+        del weights, outs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    bad = [n for n, ok in rows if not ok]
+    print(f"[zoo] {len(rows)} archs, worst card-vs-CPU logits {worst}; card {card}")
+    if bad:
+        raise SystemExit(f"zoo archs failed (non-finite loss or eval logits off): {bad}")
+
+
+def zoo_representatives(dev, card, root, reps=ZOO_REPRESENTATIVES, steps=3, timed=3):
+    """Each representative through ``recipes.tpu_native`` at full size, bf16,
+    synthetic: ``steps`` train steps and one eval batch (finite losses), then
+    the train step alone on one device batch, 1 warm-up and the median of
+    ``timed`` synchronised steps.  Returns ``{name: (step_ms, images_s)}``."""
+    out = {}
+    for name, side, batch in reps:
+        d = os.path.join(root, name)
+        os.makedirs(d, exist_ok=True)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = tpu_native.run([
+                "-a", name, "--synthetic", "-b", str(batch), "--image-size", str(side),
+                "--synthetic-length", str(steps * batch), "--epochs", "1", "-p", "100",
+                "-j", "4", "--seed", "0", "--precision", "bf16", "--num-classes", "1000",
+                "--device", dev.type, "--checkpoint-dir", d,
+                "--epoch-csv", os.path.join(d, "e.csv")])
+        run_s = time.perf_counter() - t0
+        losses = [float(x) for x in trainer.losses]
+        g = torch.Generator(device=dev).manual_seed(1)
+        b = {"images": torch.randn(batch, side, side, 3, device=dev, generator=g),
+             "labels": torch.randint(0, 1000, (batch,), device=dev, generator=g),
+             "weights": torch.ones(batch, device=dev)}
+        times = []
+        for _ in range(1 + timed):
+            t1 = time.perf_counter()
+            trainer.train_step(b, 0.01)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        ms = statistics.median(times[1:])
+        mem = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+        out[name] = (ms, batch / ms * 1e3)
+        # Eval runs on running statistics 3 EMA steps old, so a deep net's
+        # eval loss may overflow (JAX's EMA does the same); it must have run.
+        ok = (len(losses) == steps and all(math.isfinite(x) for x in losses)
+              and len(trainer.eval_history) == 1)
+        print(f"[zoo] tpu_native -a {name} b{batch} {side}x{side} bf16: losses {losses}, eval "
+              f"{list(trainer.eval_history[0])}, run {run_s} s; train step median of {timed} "
+              f"{ms} ms (all {times}), {batch / ms * 1e3} images/s, peak {mem} GiB; "
+              f"card {card}")
+        del trainer, b
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        if not ok:
+            raise SystemExit(f"tpu_native -a {name}: losses or eval not finite")
+    return out
+
+
+def zoo_world_invariance(card, root, steps=1, batch=128, lr=0.01):
+    """``multiprocessing_distributed -a mobilenet_v2`` (BatchNorm and
+    dropout) at 2 gloo ranks of ``batch // 2`` on the one card against 1
+    rank of ``batch`` over NCCL, f32, TF32 off, ``steps`` steps at ``lr``:
+    within phase 16's ``WORLD_*`` limits (loss and weights).  MobileNetV2's
+    training-mode gradients at init are chaotic, so the ranks' other
+    summation order moves them far more than ResNet-50's: one step, whose
+    loss is a forward pass (by the second, images scaled by 1 + 1e-7 move
+    the loss by 4e-6 to 7.6e-5 relative on the CPU at 224 px, b32), at lr
+    0.01 (at 0.1 the card's sound run moved a weight by 6.4e-4, the limit
+    being 3.5e-4; on the CPU the first conv's gradient moved by ~1e-2)."""
+    args = ["-a", "mobilenet_v2", "--synthetic", "-b", str(batch), "--image-size", "224",
+            "--synthetic-length", str(steps * batch), "--epochs", "1", "--seed", "0", "-p",
+            "1", "-j", "4", "--precision", "fp32", "--lr", str(lr)]
+    outs = {1: os.path.join(root, "zoo_world1"), 2: os.path.join(root, "zoo_world2")}
+    procs = [_launch("multiprocessing_distributed", outs[1],
+                     args + ["--checkpoint-dir", os.path.join(outs[1], "ckpt")], ("--tf32-off",),
+                     {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}"})]
+    port = _free_port()
+    procs += [_launch("multiprocessing_distributed", outs[2],
+                      args + ["--checkpoint-dir", os.path.join(outs[2], "ckpt")],
+                      ("--tf32-off",), {"PTD_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                                        "PTD_TPU_NUM_PROCESSES": "2",
+                                        "PTD_TPU_PROCESS_ID": str(r)})
+              for r in range(2)]
+    t0 = time.perf_counter()
+    _wait(procs, "multiprocessing_distributed -a mobilenet_v2 (world 1 and world 2)")
+    res = {w: [] for w in outs}
+    for w, out in outs.items():
+        for r in range(w):
+            with open(os.path.join(out, f"result{r}.json")) as f:
+                res[w].append(json.load(f))
+    s1, s2 = (torch.load(os.path.join(outs[w], "state.pt")) for w in (1, 2))
+    r1, r2 = res[1][0], res[2][0]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(r2["losses"], r1["losses"]))
+    worst, at = max(((s2[k].float() - v.float()).abs().max().item(), k)
+                    for k, v in s1.items())
+    within = loss_rel <= WORLD_LOSS_REL and worst <= WORLD_WEIGHT_ABS
+    print(f"[zoo] world invariance, mobilenet_v2 f32 TF32 off, lr {lr}, {steps} steps: 2 ranks x "
+          f"b{batch // 2} over {r2['backend']} vs 1 rank x b{batch} over {r1['backend']} "
+          f"({time.perf_counter() - t0} s): losses {r2['losses']} vs {r1['losses']} (max rel "
+          f"{loss_rel}, limit {WORLD_LOSS_REL}); rank losses equal "
+          f"{r2['losses'] == res[2][1]['losses']}; weights and statistics max abs diff "
+          f"{worst} at {at} (limit {WORLD_WEIGHT_ABS}); K4/K5 launches {r1['launches']} / "
+          f"{r2['launches']}; within the limits: {within}; card {card}")
+    if not (within and r1["backend"] == "nccl" and r2["backend"] == "gloo"
+            and r2["losses"] == res[2][1]["losses"]
+            and r1["launches"] == r2["launches"] == [0, 0]):
+        raise SystemExit("mobilenet_v2 at world 2 does not match world 1")
+
+
+def zoo_phase(dev, card):
+    """Phase 21: the sweep of every zoo arch, the six representatives through
+    ``tpu_native``, and MobileNetV2's world invariance; none of K1-K5 may
+    launch."""
+    for k in KERNEL_WRAPPERS:
+        k.launches = 0
+    root = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    try:
+        t0 = time.perf_counter()
+        zoo_sweep(dev, card)
+        t1 = time.perf_counter()
+        zoo_representatives(dev, card, root)
+        t2 = time.perf_counter()
+        zoo_world_invariance(card, root)
+        print(f"[time] phase 21: sweep {t1 - t0} s, representatives {t2 - t1} s, world "
+              f"invariance {time.perf_counter() - t2} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launched = [k.launches for k in KERNEL_WRAPPERS]
+    print(f"[zoo] kernel launches K1-K5 during phase 21: {launched}")
+    if any(launched):
+        raise SystemExit(f"a kernel of K1-K5 launched on the zoo path: {launched}")
 
 
 def main() -> int:
@@ -2622,6 +2850,11 @@ def main() -> int:
     k1_a9, k2_a9, k3_a9, k4_a9, k5_a9 = a9_phase(dev, card, cfg, lm_unfused_ms)
     print(f"[time] phase 20 took {time.perf_counter() - t0} s")
 
+    # 21. the rest of the image zoo
+    t0 = time.perf_counter()
+    zoo_phase(dev, card)
+    print(f"[time] phase 21 took {time.perf_counter() - t0} s")
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
@@ -2654,7 +2887,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-20 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-21 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -54,28 +54,34 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
 
 
 class Conv2d(nn.Module):
-    """flax ``nn.Conv(use_bias=False, dtype=dtype)`` over NHWC: an f32 OIHW
-    weight cast to ``dtype`` at use, symmetric padding."""
+    """flax ``nn.Conv(dtype=dtype)`` over NHWC: an f32 OIHW weight cast to
+    ``dtype`` at use, symmetric padding per axis, no bias unless ``bias``
+    (flax's ``use_bias``: added in ``dtype`` after the product, as there).
+    ``kernel_size``, ``stride`` and ``padding`` take an int or an (h, w)
+    pair."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, groups: int = 1,
-                 dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
+                 padding=0, groups: int = 1, dtype: torch.dtype = torch.float32, device=None,
+                 bias: bool = False):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.groups = groups
         self.dtype = dtype
+        kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
         self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels // groups, kernel_size, kernel_size,
-            dtype=torch.float32, device=device))
+            out_channels, in_channels // groups, kh, kw, dtype=torch.float32, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_channels, dtype=torch.float32, device=device))
+                     if bias else None)
 
     @property
     def fan_in(self) -> int:
         return self.weight[0].numel()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_nhwc(x.to(self.dtype), self.weight.to(self.dtype), self.stride,
-                           self.padding, self.groups)
+        y = conv2d_nhwc(x.to(self.dtype), self.weight.to(self.dtype), self.stride,
+                        self.padding, self.groups)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 def _fuse_ok(fused: bool, conv: Callable, norm: Callable) -> bool:

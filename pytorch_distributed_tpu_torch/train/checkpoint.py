@@ -7,8 +7,9 @@ by either package resumes, samples or serves in the other: flax msgpack
     {"epoch", "arch", "best_acc1", "ft",
      "state": {"batch_stats", "momentum", "params", "step"}}
 
-with the JAX trees (``utils/convert.py``): Dense kernels ``[in, out]``, conv
-kernels HWIO, BatchNorm statistics in ``batch_stats`` (``{}`` for the LM),
+with the JAX trees (``utils/convert.py``, any arch of the image zoo or the
+LM): Dense kernels ``[in, out]``, conv kernels HWIO, BatchNorm statistics in
+``batch_stats`` (``{}`` for the LM and the zoo's models without BatchNorm),
 the SGD momentum in the params' tree, ``step`` a 0-d int32 array, and keys
 sorted as the JAX package's host fetch leaves them.  The torch side takes
 the model, the optimizer and the step instead of a ``TrainState``.
@@ -59,12 +60,13 @@ from pytorch_distributed_tpu_torch.ft.integrity import (
 )
 from pytorch_distributed_tpu_torch.utils import flax_msgpack
 from pytorch_distributed_tpu_torch.utils.convert import (
+    image_leaves,
+    image_params_to_jax,
+    image_state_dict_from_jax,
+    image_variables_to_jax,
     lm_params_to_jax,
     lm_state_dict_from_jax,
     momentum_state_dict,
-    resnet_params_to_jax,
-    resnet_state_dict_from_jax,
-    resnet_variables_to_jax,
 )
 
 CHECKPOINT_NAME = "checkpoint.msgpack"
@@ -103,12 +105,29 @@ def _ft_record(ft: Optional[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 def _is_lm(state_dict) -> bool:
-    if "embed.weight" in state_dict:
-        return True
-    if "conv1.weight" in state_dict:
-        return False
-    raise ValueError("checkpoints cover the TransformerLM (embed.weight) and the ResNet "
-                     f"family (conv1.weight); got keys like {sorted(state_dict)[:3]}")
+    """The TransformerLM (``embed.weight``); anything else is an image model
+    of the zoo, whose JAX leaf table ``utils/convert.py`` holds."""
+    return "embed.weight" in state_dict
+
+
+def _paths(tree, prefix=()) -> set:
+    if isinstance(tree, dict):
+        return set().union(*[_paths(v, prefix + (k,)) for k, v in tree.items()]) if tree else set()
+    return {prefix}
+
+
+def _check_fits(model: torch.nn.Module, saved: Dict[str, Any]) -> None:
+    """An image checkpoint's ``params`` and ``batch_stats`` hold exactly the
+    leaves of ``model``'s JAX trees (another arch, or another depth of the
+    same family, raises)."""
+    leaves = image_leaves(model)
+    for col, want in (("params", {leaf.path for leaf in leaves if not leaf.is_stat}),
+                      ("batch_stats", {leaf.path for leaf in leaves if leaf.is_stat})):
+        got = _paths(saved.get(col) or {})
+        if got != want:
+            raise ValueError(f"checkpoint does not fit the model: {col} missing "
+                             f"{sorted('/'.join(p) for p in want - got)[:4]}, unexpected "
+                             f"{sorted('/'.join(p) for p in got - want)[:4]}")
 
 
 def state_trees(model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer]
@@ -120,8 +139,8 @@ def state_trees(model: torch.nn.Module, optimizer: Optional[torch.optim.Optimize
     if _is_lm(sd):
         return {"batch_stats": {}, "momentum": lm_params_to_jax(momentum),
                 "params": lm_params_to_jax(sd)}
-    v = resnet_variables_to_jax(sd)
-    return {"batch_stats": v["batch_stats"], "momentum": resnet_params_to_jax(momentum),
+    v = image_variables_to_jax(model, sd)
+    return {"batch_stats": v["batch_stats"], "momentum": image_params_to_jax(model, momentum),
             "params": v["params"]}
 
 
@@ -233,8 +252,10 @@ def _torch_state(model: torch.nn.Module, saved: Dict[str, Any], with_momentum: b
         sd = lm_state_dict_from_jax(saved["params"], device=device)
         mom = lm_state_dict_from_jax(saved["momentum"], device=device) if with_momentum else None
     else:
-        sd = resnet_state_dict_from_jax(saved["params"], saved["batch_stats"], device=device)
-        mom = (resnet_state_dict_from_jax(saved["momentum"], None, device=device)
+        _check_fits(model, saved)
+        sd = image_state_dict_from_jax(model, saved["params"], saved["batch_stats"] or {},
+                                       device=device)
+        mom = (image_state_dict_from_jax(model, saved["momentum"], None, device=device)
                if with_momentum else None)
     for got, names in ((sd, set(want)), (mom, {n for n, _ in model.named_parameters()})):
         if got is None:

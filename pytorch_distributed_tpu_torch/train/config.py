@@ -126,7 +126,7 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
         help="path to dataset: an ImageFolder tree with train/ and val/")
     add("-a", "--arch", metavar="ARCH", default=d.arch, choices=names,
         help="model architecture: " + " | ".join(names) + f" (default: {d.arch}; "
-        "the ResNet family is ported)")
+        "inception_v3 is canonical at --image-size 299)")
     add("-j", "--workers", default=d.workers, type=int, metavar="N",
         help="number of data loading workers (default: 4)")
     add("--worker-type", default=d.worker_type, choices=("thread", "process"),

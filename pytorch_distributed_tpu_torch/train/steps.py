@@ -17,12 +17,21 @@
 - ``make_eval_step``: exact weighted sums for the host to aggregate (all
   ranks' sums under a process group).
 
+Dropout (the zoo's ``models/layers.py::Dropout``) draws its masks from the
+``DropoutKey`` the step sets before each microbatch's forward: ``(seed,
+step.count, microbatch)`` as the JAX ``fold_in(base_key, state.step)`` and
+``fold_in(rng, i)``, with this rank folded in on the explicit step (the
+JAX ``fold_in(..., axis_index)``) and, on the GSPMD twin, the global
+batch's mask of which this rank keeps its rows.  ``step.count`` (the steps
+taken; the trainer restores it on resume) is all the state the masks
+have.
+
 Under a process group (one rank per process, each holding its shard of the
 global batch) the step takes one of the two JAX expressions:
 
 - **GSPMD twin** (default; every recipe but Horovod): the model in DDP
   (``broadcast_buffers=False``), its BatchNorm over the global batch
-  (``ResNet.set_bn_group``: moments averaged, through-stats sums of the
+  (the model's ``set_bn_group``: moments averaged, through-stats sums of the
   backward summed, also for K4/K5's vectors), the gradients all-reduced as
   sums by a comm hook and divided once by the global weight count, the
   metric sums all-reduced.  Each rank's microbatch i is its shard of the
@@ -58,6 +67,8 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
+from pytorch_distributed_tpu_torch.models.layers import (DropoutKey, dropout_layers,
+                                                          set_dropout_key)
 from pytorch_distributed_tpu_torch.ops import qcomm
 from pytorch_distributed_tpu_torch.ops.loss import cross_entropy
 from pytorch_distributed_tpu_torch.ops.metrics import topk_correct
@@ -111,7 +122,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 
                     explicit_collectives: bool = False, grad_compress: Optional[str] = None,
                     sync_bn: bool = False, zero: str = "none", overlap: str = "none",
                     bucket_mb: float = overlap_lib.DEFAULT_BUCKET_MB,
-                    wus_gather: str = "eager"):
+                    wus_gather: str = "eager", seed: int = 0):
     """``step(batch, lr) -> metrics`` (device scalars: ``loss``, ``acc1``,
     ``acc5`` in percent; ``nonfinite`` under ``guard_nonfinite``;
     ``grad_norm`` and ``param_norm`` under ``log_norms``).  ``group``: the
@@ -129,7 +140,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 
     parameters lag one step until ``step.comm.materialize()``.  The
     explicit step's gradient sync and the stack's state ride on
     ``step.comm`` (a ``GradSync``; None on the GSPMD twin without a
-    quantized mode or ``wus``), which checkpoints save and restore."""
+    quantized mode or ``wus``), which checkpoints save and restore.
+    ``seed`` and ``step.count`` key the dropout masks."""
     mode, cast_dtype = qcomm.resolve_mode(grad_compress)
     zero_mode = zero_lib.resolve_zero(zero)
     overlap_mode = overlap_lib.resolve_overlap(overlap)
@@ -184,6 +196,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 
     if (gspmd and wus) or (sync_bn and explicit_collectives and group is not None):
         model.set_bn_group(group)
     hyper = optimizer.param_groups[0]
+    drops = dropout_layers(model)
+    ranks = (0, 1) if group is None else (dist.get_rank(group), dist.get_world_size(group))
 
     def momentum_buffers() -> List[torch.Tensor]:
         return [optimizer.state.get(p, {}).get("momentum_buffer") for p in params]
@@ -210,6 +224,9 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 
             # DDP reduces once, after the last microbatch's backward; the
             # bucket hooks fire during that one only.
             defer = net is not model and i < accum_steps - 1
+            if drops:
+                set_dropout_key(drops, DropoutKey(seed, step.count, i, *ranks,
+                                                  per_rank=explicit_collectives))
             if comm is not None:
                 comm.arm(i == accum_steps - 1)
             with net.no_sync() if defer else contextlib.nullcontext():
@@ -217,6 +234,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 
                 mb_loss.backward()  # .grad holds the sum over microbatches
             loss_sum = loss_sum + mb_loss.detach()
             c1, c5, count = c1 + mb_c1, c5 + mb_c5, count + mb_count
+        step.count += 1
         if group is not None:
             sums = torch.stack([loss_sum, c1, c5, count]).float()
             dist.all_reduce(sums, group=group)
@@ -275,6 +293,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 
         return metrics
 
     step.comm = comm
+    step.count = 0
     return step
 
 

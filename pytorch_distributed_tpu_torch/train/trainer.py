@@ -15,10 +15,16 @@ BatchNorm) or the explicit one, eval sums are all-reduced; rank 0 alone
 prints, writes the epoch CSV and saves checkpoints while the others wait
 at a barrier; every rank resumes from the same file.
 
+Any arch of the image zoo (``models.model_names()``), built at
+``--image-size`` (which fixes a ViT's position grid).  ``--stem`` and
+``--fused-convbn`` are refused on a non-ResNet, as in the JAX trainer.
 ``--sync-bn`` gives the explicit step (``horovod_distributed``) the
 global-batch BatchNorm the GSPMD twin always has; there, and without a
 process group, it is the JAX package's no-op.  As in the JAX trainer, the
-explicit step refuses it with ``--fused-convbn``.
+explicit step refuses it with ``--fused-convbn``, on an arch without
+BatchNorm and on a plain VGG.  Dropout masks are keyed by ``--seed`` and
+the global step (``train/steps.py``), so ``--resume`` draws the masks an
+uninterrupted run would.
 
 The gradient-communication stack (``--grad-compress int8|fp8``, ``--zero
 wus``, ``--overlap bucketed``, ``--bucket-mb``) goes to the train step,
@@ -92,16 +98,26 @@ class Trainer:
         self.local_batch = cfg.batch_size // cfg.nprocs
         self._build_data()
         dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
-        if cfg.sync_bn and explicit_collectives and cfg.fused_convbn:
-            # The JAX trainer's refusal, kept although K4/K5 here would
-            # take the reduced vectors.
-            raise ValueError(
-                "--sync-bn and --fused-convbn are mutually exclusive: "
-                "the fused conv+BN backward has no cross-replica "
-                "statistics variant; drop one of the flags")
+        # --stem / --fused-convbn are ResNet-family knobs, forwarded only
+        # when set (the JAX trainer's rule and refusal).
+        extra = {} if cfg.stem == "conv7" else {"stem": cfg.stem}
+        if cfg.fused_convbn:
+            extra["fused_convbn"] = True
+        if extra and not models.is_resnet(cfg.arch):
+            raise ValueError(f"--stem/--fused-convbn only apply to the ResNet family; "
+                             f"arch {cfg.arch!r} has no such variant")
+        if cfg.sync_bn and explicit_collectives:
+            if cfg.fused_convbn:
+                # The JAX trainer's refusal, kept although K4/K5 here would
+                # take the reduced vectors.
+                raise ValueError(
+                    "--sync-bn and --fused-convbn are mutually exclusive: "
+                    "the fused conv+BN backward has no cross-replica "
+                    "statistics variant; drop one of the flags")
+            models.check_sync_bn(cfg.arch)  # no BatchNorm, or a plain VGG
         self.model = models.create_model(cfg.arch, num_classes=cfg.num_classes, dtype=dtype,
-                                         stem=cfg.stem, fused_convbn=cfg.fused_convbn,
-                                         device=self.device)
+                                         image_size=cfg.image_size, device=self.device,
+                                         **extra)
         self.model.init_weights(torch.Generator(device=self.device).manual_seed(self.seed))
         self.optimizer = sgd(self.model.parameters(), cfg.lr, cfg.momentum, cfg.weight_decay)
         if cfg.accum_steps < 1 or self.local_batch % cfg.accum_steps:
@@ -114,7 +130,8 @@ class Trainer:
                                           explicit_collectives=explicit_collectives,
                                           grad_compress=cfg.grad_compress,
                                           sync_bn=cfg.sync_bn, zero=cfg.zero or "none",
-                                          overlap=cfg.overlap, bucket_mb=cfg.bucket_mb)
+                                          overlap=cfg.overlap, bucket_mb=cfg.bucket_mb,
+                                          seed=self.seed)
         self.comm = self.train_step.comm
         self.eval_step = make_eval_step(self.model, group)
         self.feeder = DeviceFeeder(self.device)
@@ -140,6 +157,7 @@ class Trainer:
         ft = meta["ft"]
         self._resume_step = int(ft["step"])
         self.global_step = int(ft["global_step"])
+        self.train_step.count = self.global_step  # the dropout masks' step
         if self._resume_step > 0 and int(ft["sampler_seed"]) != self.seed:
             warnings.warn(
                 f"resuming mid-epoch with --seed {self.seed} but the checkpoint's sampler "

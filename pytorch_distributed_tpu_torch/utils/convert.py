@@ -38,6 +38,18 @@ package's key order).  Both directions, ``jax_leaves`` (a model's
 parameters in the JAX flatten order, for the gradient collectives) and the
 gradient-communication state in checkpoints read one table: ``JaxLeaf``,
 each torch name's JAX path and layout (``_lm_leaf``, ``_resnet_leaves``).
+The rest of the image zoo has a table per family (``_zoo_leaves``), read
+off the model: torchvision's names (``features.{i}``, ``classifier.{i}``,
+``features.denseblock{b}.denselayer{l}.norm1``, ...; the ViT's and the
+Inceptions' are the JAX module's own), each flax layer either at the path
+the family names or numbered as flax numbers an unnamed submodule
+(``Conv_k``, ``BatchNorm_k``, ``Dense_k`` per kind, in call order, which the
+port's registration order follows).  ViT's per-head kernels are ``[H, hd,
+D]`` (query, key, value) and ``[D, H, hd]`` (out) here, ``[D, H, hd]`` and
+``[H, hd, D]`` in JAX.  ``image_leaves`` covers every image model, the
+ResNets included; ``image_state_dict_from_jax``, ``image_variables_to_jax``
+and ``image_params_to_jax`` take the port's model or a registry name (then
+built on the meta device for its names).
 ``momentum_state_dict`` names ``torch.optim.SGD``'s momentum buffers as the
 parameters they belong to, zeros where no step has made one yet: JAX's
 ``sgd_init`` starts from zeros and ``buf = mu * 0 + g`` is torch's first
@@ -52,6 +64,14 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from pytorch_distributed_tpu_torch import models
+from pytorch_distributed_tpu_torch.models import densenet, extra, inception, mobilenet, simple
+from pytorch_distributed_tpu_torch.models.layers import Dense
+from pytorch_distributed_tpu_torch.models.resnet import Conv2d, ResNet
+from pytorch_distributed_tpu_torch.models.vit import (HeadProjection, OutProjection,
+                                                      VisionTransformer)
+from pytorch_distributed_tpu_torch.ops.fused_bn import FusedBatchNormAct
 
 
 def _t(x, device=None) -> torch.Tensor:
@@ -220,6 +240,118 @@ def _resnet_leaves(names: List[str]) -> List[JaxLeaf]:
     return out
 
 
+_HEADS = (2, 0, 1)      # [H, hd, D] -> [D, H, hd] (ViT query / key / value kernels)
+_OUT_HEADS = (1, 2, 0)  # [D, H, hd] -> [H, hd, D] (ViT attention output kernel)
+
+
+_LEAF_KINDS = ((Conv2d, "Conv"), (FusedBatchNormAct, "BatchNorm"), (Dense, "Dense"),
+               (torch.nn.LayerNorm, "LayerNorm"), (HeadProjection, "DenseGeneral"),
+               (OutProjection, "DenseGeneral"))
+
+
+def _module_leaves(name: str, mod: torch.nn.Module, path: Tuple[str, ...]) -> List[JaxLeaf]:
+    """The leaves of one flax layer at ``path``: conv kernels HWIO, dense
+    kernels [in, out], the ViT's head kernels, BatchNorm and LayerNorm
+    ``scale``, BatchNorm statistics in ``batch_stats``."""
+    kind = type(mod).__name__
+    out = []
+    for key, t in list(mod.named_parameters(recurse=False)) + list(
+            mod.named_buffers(recurse=False)):
+        leaf_name = f"{name}.{key}"
+        if key in _NORM and kind in ("FusedBatchNormAct", "LayerNorm"):
+            out.append(JaxLeaf(path + (_NORM[key],), leaf_name))
+        elif key == "bias":
+            out.append(JaxLeaf(path + ("bias",), leaf_name))
+        else:
+            perm = {"Conv2d": _HWIO, "Dense": _IO, "HeadProjection": _HEADS,
+                    "OutProjection": _OUT_HEADS}[kind]
+            out.append(JaxLeaf(path + ("kernel",), leaf_name, perm))
+    return out
+
+
+def _table(model: torch.nn.Module, scope_of, fixed=None) -> List[JaxLeaf]:
+    """The leaves of a zoo model: each flax layer either at the path
+    ``fixed(name)`` gives, or named as flax names an unnamed submodule,
+    ``{Kind}_{k}`` counted per kind in call order (which the registration
+    order follows) inside the scope ``scope_of(name)``."""
+    counts: Dict[Tuple, int] = {}
+    out = []
+    for name, mod in model.named_modules():
+        kind = next((k for cls, k in _LEAF_KINDS if isinstance(mod, cls)), None)
+        if kind is None:
+            continue
+        path = fixed(name) if fixed is not None else None
+        if path is None:
+            scope = scope_of(name)
+            k = counts.get((scope, kind), 0)
+            counts[(scope, kind)] = k + 1
+            path = scope + (f"{kind}_{k}",)
+        out += _module_leaves(name, mod, path)
+    return out
+
+
+def _scope_index(prefixes: List[str], tag: str):
+    """``scope_of`` for flax submodules ``{tag}_{k}`` numbered in model
+    order: the k-th of ``prefixes`` (torch module names)."""
+    def scope_of(name: str) -> Tuple[str, ...]:
+        for k, pre in enumerate(prefixes):
+            if name.startswith(pre + "."):
+                return (f"{tag}_{k}",)
+        return ()
+    return scope_of
+
+
+def _zoo_leaves(model: torch.nn.Module) -> List[JaxLeaf]:
+    """One table per family of the JAX zoo (torchvision's names; the ViT's
+    and the Inceptions' are the JAX module's own)."""
+    root = lambda name: ()  # noqa: E731
+    if isinstance(model, (simple.AlexNet, simple.VGG)):
+        head = f"classifier.{len(model.classifier) - 1}"
+        return _table(model, root, lambda n: ("fc",) if n == head else None)
+    if isinstance(model, densenet.DenseNet):
+        def dense_scope(name):
+            m = re.match(r"features\.denseblock(\d+)\.denselayer(\d+)\.", name)
+            return (f"block{int(m.group(1)) - 1}_layer{int(m.group(2)) - 1}",) if m else ()
+        return _table(model, dense_scope, lambda n: ("fc",) if n == "classifier" else None)
+    if isinstance(model, mobilenet.MobileNetV2):
+        blocks = [f"features.{i}.conv" for i, m in enumerate(model.features)
+                  if isinstance(m, mobilenet.InvertedResidual)]
+        return _table(model, _scope_index(blocks, "_InvertedResidual"),
+                      lambda n: ("fc",) if n == "classifier.1" else None)
+    if isinstance(model, extra.SqueezeNet):
+        fires = [f"features.{i}" for i, m in enumerate(model.features)
+                 if isinstance(m, extra.Fire)]
+        return _table(model, _scope_index(fires, "_Fire"),
+                      lambda n: ("classifier",) if n == "classifier.1" else None)
+    if isinstance(model, extra.ShuffleNetV2):
+        units = [f"stage{s}.{i}" for s in (2, 3, 4)
+                 for i in range(len(getattr(model, f"stage{s}")))]
+        return _table(model, _scope_index(units, "_ShuffleUnit"),
+                      lambda n: ("fc",) if n == "fc" else None)
+    if isinstance(model, extra.MNASNet):
+        blocks = [f"layers.{i}.{j}" for i, m in enumerate(model.layers)
+                  if isinstance(m, torch.nn.Sequential) for j in range(len(m))]
+        return _table(model, _scope_index(blocks, "_MBConv"),
+                      lambda n: ("fc",) if n == "classifier.1" else None)
+    if isinstance(model, (inception.GoogLeNet, inception.InceptionV3)):
+        # torch's branch2.1 is flax's branch2_1; every other name is flax's.
+        return _table(model, root,
+                      lambda n: tuple(re.sub(r"(branch\d)\.(\d)", r"\1_\2", n).split(".")))
+    if isinstance(model, VisionTransformer):
+        own = [JaxLeaf((n,), n) for n in ("cls_token", "pos_embedding", "cls_pos_embedding")]
+        return own + _table(model, root, lambda n: tuple(n.split(".")))
+    raise ValueError(f"no JAX leaf table for {type(model).__name__}")
+
+
+def image_leaves(model: torch.nn.Module) -> List[JaxLeaf]:
+    """Every parameter and BatchNorm statistic of an image model as a leaf
+    of its JAX ``params`` / ``batch_stats`` trees, in the model's
+    registration order."""
+    if isinstance(model, ResNet):
+        return _resnet_leaves(list(model.state_dict()))
+    return _zoo_leaves(model)
+
+
 def jax_leaves(model: torch.nn.Module) -> List[JaxLeaf]:
     """The model's parameters as the leaves of its JAX ``params`` tree, in
     ``jax.tree_util``'s flatten order (dict keys sorted at every level, so
@@ -228,11 +360,8 @@ def jax_leaves(model: torch.nn.Module) -> List[JaxLeaf]:
     names = [n for n, _ in model.named_parameters()]
     if "embed.weight" in names:
         leaves = [_lm_leaf(n) for n in names]
-    elif "conv1.weight" in names:
-        leaves = _resnet_leaves(names)
     else:
-        raise ValueError("the JAX leaf order covers the TransformerLM (embed.weight) and the "
-                         f"ResNet family (conv1.weight); got names like {names[:3]}")
+        leaves = [leaf for leaf in image_leaves(model) if not leaf.is_stat]
     return sorted(leaves, key=lambda leaf: leaf.path)
 
 
@@ -342,6 +471,55 @@ def resnet_variables_to_jax(state_dict: Mapping) -> Dict[str, Dict]:
     inverse of ``resnet_state_dict_from_jax``."""
     sd = _strip(state_dict)
     return {"params": _resnet_tree(sd, stats=False), "batch_stats": _resnet_tree(sd, stats=True)}
+
+
+def _image_model(arch, names=()) -> torch.nn.Module:
+    """``arch`` itself when it is a model, else that arch built on the meta
+    device (names and layouts only), with its aux heads when ``names``
+    (JAX top-level keys or torch names) holds them."""
+    if isinstance(arch, torch.nn.Module):
+        return arch
+    kw = {}
+    if any(str(n).split(".")[0] in ("aux1", "AuxLogits") for n in names):
+        kw["aux_logits"] = True
+    return models.create_model(arch, device="meta", **kw)
+
+
+def image_state_dict_from_jax(arch, params: Mapping, batch_stats: Optional[Mapping],
+                              device=None) -> Dict[str, torch.Tensor]:
+    """An image model's JAX ``params`` and ``batch_stats`` -> the port's
+    ``state_dict`` (the parameters alone when ``batch_stats`` is None, e.g.
+    a momentum tree); ``arch`` is a registry name or the port's model.
+    Raises ``KeyError`` naming a path the trees lack."""
+    sd = {}
+    for leaf in image_leaves(_image_model(arch, params)):
+        if leaf.is_stat and batch_stats is None:
+            continue
+        tree = batch_stats if leaf.is_stat else params
+        try:
+            value = tree_at(tree, leaf.path)
+        except KeyError:
+            raise KeyError("/".join(leaf.path)) from None
+        sd[leaf.name] = leaf.from_host(value, device)
+    return sd
+
+
+def image_variables_to_jax(arch, state_dict: Mapping) -> Dict[str, Dict]:
+    """The port's image-model ``state_dict`` -> ``{"params",
+    "batch_stats"}`` (``{}`` for a model without BatchNorm); the inverse of
+    ``image_state_dict_from_jax``."""
+    sd = _strip(state_dict)
+    leaves = image_leaves(_image_model(arch, sd))
+    return {"params": _tree(sd, [leaf for leaf in leaves if not leaf.is_stat]),
+            "batch_stats": _tree(sd, [leaf for leaf in leaves if leaf.is_stat])}
+
+
+def image_params_to_jax(arch, state_dict: Mapping) -> Dict:
+    """An image model's parameters alone (a momentum ``state_dict``) -> the
+    JAX ``params`` tree."""
+    sd = _strip(state_dict)
+    return _tree(sd, [leaf for leaf in image_leaves(_image_model(arch, sd))
+                      if not leaf.is_stat])
 
 
 def momentum_state_dict(model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer]
