@@ -2,8 +2,8 @@
 """Run the PyTorch port's serving, LM training and image training paths,
 their checkpoints, image training from an ImageFolder tree on disk, the
 data-parallel image recipes, the fused CE head, int8 weights,
-speculative decoding, the gradient-communication stack and the rest of the
-image zoo, on one NVIDIA H100 and check them.
+speculative decoding, the gradient-communication stack, the rest of the
+image zoo and LM training across ranks, on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -109,7 +109,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     train steps and one eval batch each, K4 33 and K5 13 times per step,
     neither in eval, finite losses; prints per mode the loader's host
     images/s alone, the median step, ``DeviceFeeder`` wait per batch and the
-    bytes copied per batch.  The first eval batch of u8host and u8, as it
+    bytes copied per batch.  The process workers import what they
+    unpickle, not this script (the loader's ``_spawn_without_main``).  The
+    first eval batch of u8host and u8, as it
     lands on the card, must equal f32's to 1e-5; u8's first train batch
     must follow the JAX flip stream and equal u8host's to 1e-5, and each
     f32 train image the same crop (or its mirror: f32 flips per sample);
@@ -122,25 +124,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     ``dataparallel`` (plain: one worker per card), ``horovod_distributed``
     (``PTD_TPU_*`` for one process), ``distributed_slurm_main``
     (``SLURM_PROCID=0 SLURM_NTASKS=1``) and ``tpu_native`` (no launcher)
-    trains ResNet-50 ``--fused-convbn`` b256 224x224 synthetic for 3 steps
-    and one eval batch in a process of its own (cuDNN deterministic): NCCL
+    trains ResNet-50 ``--fused-convbn`` 224x224 synthetic for 3 steps and
+    one eval batch in a process of its own (cuDNN deterministic; the two
+    timed recipes, ``distributed`` and ``tpu_native``, at b256 alone on the
+    card, the other five at b64 together): NCCL
     must be the backend (no group for ``tpu_native``), K4 run 33 and K5 13
     times per step (counted in that process, zeroed just before the run),
     the losses be finite; ``distributed`` (``--precision bf16``) must end
     bitwise equal to ``tpu_native``; ``multiprocessing_distributed`` at two
-    ranks of b128 sharing the card over gloo must match one rank of b256
+    ranks of b32 sharing the card over gloo must match one rank of b64
     (f32, TF32 off) within ``WORLD_*`` (loss, weights and statistics, and
     each tensor's difference relative to its change in the run), limits set
     between the sound run's readings and those of two controls run beside
-    it, which must exceed them: per-rank BatchNorm (plain DDP) and K4/K5's
-    per-channel vectors from this rank's sums alone.  Prints the DDP step
+    it (all seven processes at once), which must exceed them: per-rank
+    BatchNorm (plain DDP) and K4/K5's per-channel vectors from this rank's
+    sums alone.  Prints the DDP step
     against the launcher-less one on one device batch and the all-reduce
     time of ResNet-50's gradients.  Then ``--sync-bn`` on the explicit step
     (``horovod_distributed``, f32, TF32 off, ``--grad-compress none``,
     without ``--fused-convbn``, which it refuses with the JAX message): at
     world 1 over NCCL bitwise equal to the run without it; 2 gloo ranks of
-    b128 with it within ``WORLD_*`` of that run, and the same ranks without
-    it (per-rank BatchNorm, the control) outside them;
+    b32 with it within ``WORLD_*`` of that run, and the same ranks without
+    it (per-rank BatchNorm, the control) outside them (the four runs at
+    once);
 17. the fused tied-head cross-entropy at the LM's full width (L=4096, B=4):
     one f32 step (TF32 off) with ``--fused-ce 8``'s loss against the
     unfused head on the same weights and tokens (loss 1e-5 relative; the
@@ -202,7 +208,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     synchronised steps; prints ms and images/s); ``multiprocessing_distributed
     -a mobilenet_v2`` (BatchNorm and dropout) at 2 gloo ranks of b64 on the
     card against 1 rank of b128 over NCCL, f32, TF32 off, one step at lr 0.01, within
-    phase 16's ``WORLD_*`` limits; none of K1-K5 launches in the phase.
+    phase 16's ``WORLD_*`` limits; none of K1-K5 launches in the phase;
+22. LM training across ranks: ``recipes.lm_pretrain`` at the LM cell
+    (bf16, 12 layers, B=4, L=4096, 3 steps) in a process of its own under
+    ``PTD_TPU_*`` at world 1 (NCCL, the mesh's data group running every
+    collective) bitwise equal to the run without a group in this process,
+    K1, K2 and K3 once per layer per step in each, its step against phase
+    17's unfused one; two gloo ranks sharing the card (f32, TF32 off, the
+    LM width at 2 layers, L=4096, 3 steps) against one rank on the same
+    global batch: data parallelism (B=4), Megatron tensor parallelism (B=2,
+    8 heads a rank through K1-K3), FSDP and ``--zero wus`` at DP 2, each
+    within ``LM_WORLD_*`` (every step's loss relative, the whole gathered
+    model after the last step absolute), and two controls outside them (qkv split in contiguous
+    halves, not head groups; per-rank loss means with no gradient sum);
+    each rank's resident parameter and momentum bytes (FSDP 2 under 0.55 of
+    DP 2's); ``recipes.lm_generate --tp 2`` at the LM's width and depth
+    (f32, two gloo ranks, dense prefill) against ``--tp 1``: the same
+    greedy tokens unless the top-2 gap at the first difference is under
+    1e-3, printed by rank 0 alone.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
@@ -789,10 +812,11 @@ def data_phase(dev, card, arch="resnet50", batch=256, image_size=224, classes=10
             t0 = time.perf_counter()
             trainer = tpu_native.run([
                 "--data", os.path.join(root, "data"), "-a", arch, "--fused-convbn", "-b",
-                str(batch), "--image-size", str(image_size), "--wire", wire, "--worker-type",
-                worker, "-j", str(nproc), "--epochs", "1", "--precision", "bf16", "--seed",
-                "0", "-p", "10", "--epoch-csv", os.path.join(root, "epochs.csv"),
-                "--checkpoint-dir", ckpt_dir, "--device", str(dev)])
+                str(batch), "--image-size", str(image_size), "--wire", wire,
+                "--worker-type", worker, "-j", str(nproc), "--epochs", "1", "--precision",
+                "bf16", "--seed", "0", "-p", "10", "--epoch-csv",
+                os.path.join(root, "epochs.csv"), "--checkpoint-dir", ckpt_dir,
+                "--device", str(dev)])
             run_s = time.perf_counter() - t0
             if dev.type == "cuda":
                 torch.cuda.synchronize()
@@ -1077,16 +1101,24 @@ def _free_port() -> int:
     raise RuntimeError("no free TCP port in 20000-32767")
 
 
-def _launch(name, out, args, flags=(), env=None, torchrun=False):
-    """Start one recipe worker (``env`` added to a clean environment);
-    returns the Popen."""
-    os.makedirs(out, exist_ok=True)
+def _clean_env(env=None) -> dict:
+    """This process's environment without any launcher's variables, this
+    script's directory on the path, plus ``env``."""
     base = {k: v for k, v in os.environ.items()
             if not k.startswith(("PTD_TPU", "SLURM_", "RANK", "WORLD_SIZE", "LOCAL_RANK",
                                  "LOCAL_WORLD_SIZE", "MASTER_", "TORCHELASTIC", "GROUP_"))}
     here = os.path.dirname(os.path.abspath(__file__))
     base["PYTHONPATH"] = here + os.pathsep + base.get("PYTHONPATH", "")
     base.update(env or {})
+    return base
+
+
+def _launch(name, out, args, flags=(), env=None, torchrun=False):
+    """Start one recipe worker (``env`` added to a clean environment);
+    returns the Popen."""
+    os.makedirs(out, exist_ok=True)
+    base = _clean_env(env)
+    here = os.path.dirname(os.path.abspath(__file__))
     me = [os.path.join(here, "chip_smoke.py"), "--recipe-worker", name, out, *flags, "--",
           *args]
     cmd = ([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
@@ -1119,22 +1151,24 @@ def dp_args(steps=3, batch=256):
             "--seed", "0", "-p", "1", "-j", "4"]
 
 
-def dp_phase(card, steps=3, batch=256, per_step=(33, 13)):
+def dp_phase(card, steps=3, batch=256, small=64, per_step=(33, 13)):
     """Phase 16: the six data-parallel recipes and ``tpu_native`` at world 1
     (NCCL where a launcher names the world), bitwise ``distributed`` vs the
     launcher-less ``tpu_native``, world 2 on the one card over gloo vs world
-    1 (f32, TF32 off), DDP's step and all-reduce times.  Returns the (K4, K5)
-    launches of the world-1 recipe runs."""
+    1 (f32, TF32 off), DDP's step and all-reduce times.  The two timed
+    recipes train b``batch``; the untimed ones and the world-invariance and
+    ``--sync-bn`` checks b``small``, so each set fits the card at once.
+    Returns the (K4, K5) launches of the world-1 recipe runs."""
     root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
-    common = dp_args(steps, batch)
     launches, results = [0, 0], {}
     try:
-        # The two timed recipes run alone; the others two or three at a time
-        # on the card (their launch counts and results are per process).
+        # The two timed recipes run alone; the other five together on the
+        # card (their launch counts and results are per process).
         for group in (("distributed",), ("tpu_native",),
-                      ("apex_distributed", "multiprocessing_distributed", "dataparallel"),
-                      ("horovod_distributed", "distributed_slurm_main")):
+                      ("apex_distributed", "multiprocessing_distributed", "dataparallel",
+                       "horovod_distributed", "distributed_slurm_main")):
             procs, t0 = [], time.perf_counter()
+            common = dp_args(steps, batch if len(group) == 1 else small)
             for name in group:
                 out = os.path.join(root, name)
                 args = common + ["--checkpoint-dir", os.path.join(out, "ckpt"),
@@ -1192,8 +1226,8 @@ def dp_phase(card, steps=3, batch=256, per_step=(33, 13)):
               f"ResNet-50's {d['allreduce_bytes']} gradient bytes over NCCL at world 1: "
               f"{d['allreduce_ms']} ms (median of 10); card {card}")
 
-        world_invariance(card, root, common, steps, batch, per_step)
-        sync_bn_check(card, root, steps, batch)
+        world_invariance(card, root, dp_args(steps, small), steps, small, per_step)
+        sync_bn_check(card, root, steps, small)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
@@ -1228,11 +1262,10 @@ def sync_bn_check(card, root, steps=3, batch=256):
     args = [a for a in dp_args(steps, batch) if a != "--fused-convbn"] + [
         "--precision", "fp32", "--grad-compress", "none"]
     runs = {}
-    # Two runs at a time share the card: the world-1 pair, then the two
-    # world-2 runs (four processes).
-    for pair in ((("world 1", 1, []), ("world 1 --sync-bn", 1, ["--sync-bn"])),
-                 (("world 2 --sync-bn", 2, ["--sync-bn"]),
-                  ("control: world 2 per-rank BatchNorm", 2, []))):
+    # All four runs share the card at once (six processes).
+    for pair in ((("world 1", 1, []), ("world 1 --sync-bn", 1, ["--sync-bn"]),
+                  ("world 2 --sync-bn", 2, ["--sync-bn"]),
+                  ("control: world 2 per-rank BatchNorm", 2, [])),):
         procs, t0 = [], time.perf_counter()
         for tag, world, extra in pair:
             out = os.path.join(root, "sync_bn_" + re.sub(r"\W+", "_", tag))
@@ -1263,7 +1296,7 @@ def sync_bn_check(card, root, steps=3, batch=256):
     same = r1[0]["losses"] == rs[0]["losses"] and all(torch.equal(s1[k], ss[k]) for k in s1)
     print(f"[dp] horovod_distributed --sync-bn at world 1 (NCCL, f32, TF32 off, unfused, "
           f"{steps} steps) vs without: bitwise {'equal' if same else 'DIFFERENT'}, losses "
-          f"{rs[0]['losses']} vs {r1[0]['losses']} (the pair side by side: {t1} s); "
+          f"{rs[0]['losses']} vs {r1[0]['losses']} (all four runs side by side: {t1} s); "
           f"card {card}")
     if not same:
         raise SystemExit("--sync-bn changed the explicit step at world 1")
@@ -1273,7 +1306,7 @@ def sync_bn_check(card, root, steps=3, batch=256):
         worst = max((s2[k].float() - w.float()).abs().max().item() for k, w in s1.items())
         within = loss_rel <= WORLD_LOSS_REL and worst <= WORLD_WEIGHT_ABS
         print(f"[dp] explicit step world invariance ({tag}), f32 TF32 off, {steps} steps: 2 "
-              f"ranks x b{batch // 2} over gloo (both runs side by side: {t2} s) vs 1 rank x "
+              f"ranks x b{batch // 2} over gloo (all four runs side by side: {t2} s) vs 1 rank x "
               f"b{batch} over NCCL: "
               f"losses {r2[0]['losses']} vs {r1[0]['losses']} (max rel {loss_rel}, limit "
               f"{WORLD_LOSS_REL}); weights and statistics max abs diff {worst} (limit "
@@ -1323,17 +1356,15 @@ def world_invariance(card, root, common, steps=3, batch=256, per_step=(33, 13)):
                          "PTD_TPU_NUM_PROCESSES": "2", "PTD_TPU_PROCESS_ID": str(r)})
                 for r in range(2)]
 
-    # Two runs at a time share the card: world 1 beside the sound world 2,
-    # then the two controls (four processes).
+    # World 1, the sound world 2 and both controls share the card at once
+    # (seven processes).
     t0 = time.perf_counter()
     _wait([_launch("multiprocessing_distributed", out1,
                    f32 + ["--checkpoint-dir", os.path.join(out1, "ckpt")], ("--tf32-off",),
-                   {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}"})] + world2(()),
-          "world 1 f32 and world 2 f32 (sound)")
-    pair_s = {"sound": time.perf_counter() - t0}
-    t0 = time.perf_counter()
-    _wait(world2(runs[1][1]) + world2(runs[2][1]), "world 2 f32 (both controls)")
-    pair_s[runs[1][0]] = pair_s[runs[2][0]] = time.perf_counter() - t0
+                   {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}"})]
+          + world2(()) + world2(runs[1][1]) + world2(runs[2][1]),
+          "world 1 f32, world 2 f32 (sound) and both controls")
+    pair_s = dict.fromkeys([tag for tag, _ in runs], time.perf_counter() - t0)
     with open(os.path.join(out1, "result0.json")) as f:
         r1 = json.load(f)
     s1 = torch.load(os.path.join(out1, "state.pt"))
@@ -1351,7 +1382,7 @@ def world_invariance(card, root, common, steps=3, batch=256, per_step=(33, 13)):
         layer = max(max(r["layer_err"].values()) for r in r2)
         within = loss_rel <= WORLD_LOSS_REL and worst <= WORLD_WEIGHT_ABS and layer <= WORLD_LAYER
         print(f"[dp] world invariance ({tag}), f32 TF32 off, {steps} steps: 2 ranks x "
-              f"b{batch // 2} over {r2[0]['backend']} on one card (the pair side by side: "
+              f"b{batch // 2} over {r2[0]['backend']} on one card (all seven processes side by side: "
               f"{w2_s} s) vs 1 rank x b{batch} over {r1['backend']}: losses {r2[0]['losses']} "
               f"vs {r1['losses']} "
               f"(max rel {loss_rel}, limit {WORLD_LOSS_REL}); rank losses equal "
@@ -2261,6 +2292,288 @@ def zoo_phase(dev, card):
         raise SystemExit(f"a kernel of K1-K5 launched on the zoo path: {launched}")
 
 
+# Phase 22's limits on 2 gloo ranks sharing the card against 1 rank (f32,
+# TF32 off, 3 steps): the largest relative difference of a step's loss and
+# the largest absolute difference of any weight after the last step, each
+# set between the sound runs and the controls that must exceed it (PERF.md
+# §2).
+LM_WORLD_LOSS_REL = 1e-5
+LM_WORLD_WEIGHT_ABS = 1e-4
+LM_MESH_CASES = {   # name: (dp, tp, fsdp, zero, global batch, control)
+    "dp2": (2, 1, False, "none", 4, None),
+    "tp2": (1, 2, False, "none", 2, None),
+    "fsdp2": (2, 1, True, "none", 4, None),
+    "wus2": (2, 1, False, "wus", 4, None),
+    "tp2_contiguous_qkv": (1, 2, False, "none", 2, "contiguous_qkv"),
+    "dp2_no_grad_sum": (2, 1, False, "none", 4, "no_grad_sum"),
+}
+
+
+def _lm_mesh_cfg(cfg):
+    """Phase 22's 2-rank model: the LM cell's width, depth cut to 2."""
+    return dict(cfg, n_layers=2)
+
+
+def _lm_tokens(cfg, B, TL, steps):
+    from pytorch_distributed_tpu_torch.train.lm import SyntheticTokenDataset
+
+    ds = SyntheticTokenDataset(64, TL, cfg["vocab_size"], seed=0)
+    return [torch.from_numpy(ds.batch(i, B)) for i in range(steps)]
+
+
+def lm_mesh_worker(argv) -> int:
+    """``--lm-mesh-worker OUT``: one of phase 22's two gloo ranks sharing the
+    card.  Runs every case of ``LM_MESH_CASES`` over one process group (f32,
+    TF32 off, the LM width at 2 layers, L=4096, 3 steps), each from the
+    seed's weights, and writes ``OUT/mesh<rank>.pt``: per case the losses,
+    K1-K3 launches, resident parameter and momentum bytes and (rank 0) the
+    whole model gathered after the last step."""
+    from pytorch_distributed_tpu_torch.parallel import initialize, shutdown
+    from pytorch_distributed_tpu_torch.parallel import tp as tp_lib
+    from pytorch_distributed_tpu_torch.parallel.fsdp import apply_fsdp
+    from pytorch_distributed_tpu_torch.parallel.mesh import MeshSpec, build_mesh, device_for
+    from pytorch_distributed_tpu_torch.train import lm
+
+    out = argv[0]
+    TL, steps = int(argv[1]), int(argv[2])
+    cfg = _lm_mesh_cfg(json.loads(argv[3]))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    ctx = initialize(device="cuda")
+    dev = device_for(ctx, "cuda")
+    res = {"backend": ctx.backend, "world": ctx.process_count}
+    real_sync = lm._sync_data
+    for name, (dp, tp, fsdp, zero, B, control) in LM_MESH_CASES.items():
+        mesh = build_mesh(MeshSpec(("data", "model"), (dp, tp)), ctx)
+        model = TransformerLM(**cfg, dtype=torch.float32, device=dev, mesh=mesh)
+        if control == "contiguous_qkv":   # a contiguous half of qkv's rows: not a head group
+            for k in model.specs:
+                if k.endswith("attn.qkv.weight"):
+                    model.specs[k] = tp_lib._contiguous(3 * cfg["d_model"], tp, 0)
+        if fsdp:
+            apply_fsdp(model, mesh)
+        model.init_weights(torch.Generator(device=dev).manual_seed(0))
+        lm._sync_data = (lambda params, group: None) if control == "no_grad_sum" else real_sync
+        opt = sgd(model.parameters())
+        step = lm.make_lm_train_step(model, opt, zero=zero, mesh=mesh)
+        for k in KERNEL_WRAPPERS[:3]:
+            k.launches = 0
+        d = mesh.index("data")
+        losses = []
+        for toks in _lm_tokens(cfg, B, TL, steps):
+            losses.append(float(step(toks[d * B // dp:(d + 1) * B // dp].to(dev), 1e-2)["loss"]))
+        torch.cuda.synchronize()
+        launches = [k.launches for k in KERNEL_WRAPPERS[:3]]
+        full = model.full_state_dict()
+        res[name] = {"losses": losses, "launches": launches,
+                     "param_bytes": _param_bytes(model),
+                     "momentum_bytes": gradsync.momentum_bytes(opt, step.comm),
+                     "state": ({k: v.detach().cpu() for k, v in full.items()}
+                               if mesh.is_primary else None)}
+        del model, opt, step, full
+        torch.cuda.empty_cache()
+    lm._sync_data = real_sync
+    torch.save(res, os.path.join(out, f"mesh{ctx.process_index}.pt"))
+    shutdown(ctx)
+    return 0
+
+
+def lm_worker(argv) -> int:
+    """``--lm-worker OUT -- ARGS``: ``lm_pretrain.run(ARGS)`` in a process of
+    its own (under a launcher's environment), K1-K3 counted over the run;
+    writes ``OUT/lm.json`` and the final weights ``OUT/state.pt``."""
+    out, args = argv[0], argv[argv.index("--") + 1:]
+    for k in KERNEL_WRAPPERS[:3]:
+        k.launches = 0
+    trainer = lm_pretrain.run(args)
+    torch.cuda.synchronize()
+    res = {"backend": trainer.ctx.backend, "world": trainer.ctx.process_count,
+           "mesh": trainer.mesh.shape, "launches": [k.launches for k in KERNEL_WRAPPERS[:3]],
+           "losses": [float(x) for x in trainer.losses],
+           "step_ms": [t * 1e3 for t in trainer.step_times]}
+    torch.save({k: v.detach().cpu() for k, v in trainer.model.state_dict().items()},
+               os.path.join(out, "state.pt"))
+    with open(os.path.join(out, "lm.json"), "w") as f:
+        json.dump(res, f)
+    from pytorch_distributed_tpu_torch.parallel import shutdown
+    shutdown(trainer.ctx)
+    return 0
+
+
+def _spawn(args, env, out, log):
+    """A process of ``args`` in a clean launcher environment plus ``env``,
+    its output to ``log``."""
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, *args], env=_clean_env(env), cwd=out,
+                                stdout=f, stderr=subprocess.STDOUT, text=True)
+
+
+def _wait_logs(procs, logs, what, timeout=600):
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            with open(log) as f:
+                raise SystemExit(f"{what} exited {p.returncode}:\n{f.read()[-4000:]}")
+
+
+def lm_mesh_phase(dev, card, cfg, lm_unfused_ms, TB=4, TL=4096, steps=3, gen_new=16):
+    """Phase 22: LM training across ranks and ``lm_generate --tp``.  Returns
+    the (K1, K2, K3) launches of its training runs."""
+    here = os.path.abspath(__file__)
+    root = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
+    args = ["--vocab", str(cfg["vocab_size"]), "--d-model", str(cfg["d_model"]),
+            "--n-heads", str(cfg["n_heads"]), "--n-layers", str(cfg["n_layers"]),
+            "--seq-len", str(TL), "-b", str(TB), "--steps", str(steps), "--precision", "bf16",
+            "--no-eval", "-p", str(steps)]
+    total = [0, 0, 0]
+    try:
+        # (a) lm_pretrain through the launcher at world 1 (NCCL), alone on
+        # the card for its step times, then without a group in this process.
+        t0 = time.perf_counter()
+        out = os.path.join(root, "nccl")
+        os.makedirs(out)
+        log = os.path.join(out, "log")
+        _wait_logs([_spawn([here, "--lm-worker", out, "--", *args],
+                           {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+                            "PTD_TPU_NUM_PROCESSES": "1", "PTD_TPU_PROCESS_ID": "0"}, out, log)],
+                   [log], "lm_pretrain at world 1")
+        with open(os.path.join(out, "lm.json")) as f:
+            nccl = json.load(f)
+        t_a = time.perf_counter() - t0
+
+        # (b) the 2-rank cases and (c) lm_generate --tp 2, four processes
+        # sharing the card, while this process runs the references.
+        t0 = time.perf_counter()
+        procs, logs = [], []
+        mesh_out = os.path.join(root, "mesh")
+        os.makedirs(mesh_out)
+        port, gport = _free_port(), _free_port()
+        prompt = [(7 * i + 3) % cfg["vocab_size"] for i in range(16)]
+        gen_args = ["-m", "pytorch_distributed_tpu_torch.recipes.lm_generate", "--random-init",
+                    "--vocab", str(cfg["vocab_size"]), "--d-model", str(cfg["d_model"]),
+                    "--n-heads", str(cfg["n_heads"]), "--n-layers", str(cfg["n_layers"]),
+                    "--prompt-tokens", ",".join(map(str, prompt)), "-n", str(gen_new),
+                    "--precision", "fp32", "--tp", "2"]
+        for r in range(2):
+            env = {"PTD_TPU_NUM_PROCESSES": "2", "PTD_TPU_PROCESS_ID": str(r)}
+            logs.append(os.path.join(mesh_out, f"log{r}"))
+            procs.append(_spawn([here, "--lm-mesh-worker", mesh_out, str(TL), str(steps),
+                                 json.dumps(cfg)],
+                                {**env, "PTD_TPU_COORDINATOR": f"127.0.0.1:{port}"},
+                                mesh_out, logs[-1]))
+            logs.append(os.path.join(mesh_out, f"gen{r}"))
+            procs.append(_spawn(gen_args, {**env, "PTD_TPU_COORDINATOR": f"127.0.0.1:{gport}"},
+                                mesh_out, logs[-1]))
+        for k in KERNEL_WRAPPERS[:3]:
+            k.launches = 0
+        trainer = lm_pretrain.run([*args, "--device", "cuda"])
+        torch.cuda.synchronize()
+        plain = [k.launches for k in KERNEL_WRAPPERS[:3]]
+        same = (nccl["losses"] == [float(x) for x in trainer.losses]
+                and all(torch.equal(v.cpu(), w) for v, w in
+                        zip(trainer.model.state_dict().values(),
+                            torch.load(os.path.join(out, "state.pt")).values())))
+        nccl_ms = statistics.median(nccl["step_ms"][1:])
+        print(f"[lm-mesh] lm_pretrain at world 1 over {nccl['backend']} (mesh {nccl['mesh']}) "
+              f"vs no group, bf16 B={TB} L={TL} {cfg['n_layers']} layers, {steps} steps: "
+              f"{'bitwise equal' if same else 'DIFFERENT'}, losses {nccl['losses']}; step "
+              f"{nccl_ms} ms (median of steps 2-{steps}; all {nccl['step_ms']}) vs phase 17's "
+              f"unfused step {lm_unfused_ms} ms; launches K1/K2/K3 {nccl['launches']} and "
+              f"{plain}; card {card}")
+        want = [cfg["n_layers"] * steps] * 3
+        if not (same and nccl["backend"] == "nccl" and nccl["launches"] == want
+                and plain == want):
+            raise SystemExit("lm_pretrain at world 1 over NCCL is not the run without a group, "
+                             "or K1-K3 did not launch once per layer per step")
+        total = [a + b + c for a, b, c in zip(total, nccl["launches"], plain)]
+        del trainer
+        torch.cuda.empty_cache()
+
+        # The 1-rank references of (b), f32, TF32 off, in this process.
+        from pytorch_distributed_tpu_torch.train import lm as lm_mod
+
+        mcfg = _lm_mesh_cfg(cfg)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        refs = {}
+        for B in (TB, TB // 2):
+            model = TransformerLM(**mcfg, dtype=torch.float32, device=dev)
+            model.init_weights(torch.Generator(device=dev).manual_seed(0))
+            step = lm_mod.make_lm_train_step(model, sgd(model.parameters()))
+            losses = [float(step(t.to(dev), 1e-2)["loss"]) for t in _lm_tokens(mcfg, B, TL,
+                                                                                 steps)]
+            refs[B] = (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()})
+            del model, step
+            torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+        # (c)'s reference: --tp 1 on the same weights and prompt.
+        gmodel = TransformerLM(**cfg, dtype=torch.float32, device=dev)
+        gmodel.init_weights(torch.Generator(device=dev).manual_seed(0))
+        gprompt = torch.tensor([prompt], device=dev)
+        gwant = generate(gmodel, gprompt, gen_new)
+        _wait_logs(procs, logs, "phase 22's 2-rank processes")
+        t_bc = time.perf_counter() - t0
+
+        ranks = [torch.load(os.path.join(mesh_out, f"mesh{r}.pt")) for r in range(2)]
+        readings = {}
+        for name, (dp, tp, fsdp, zero, B, control) in LM_MESH_CASES.items():
+            got = ranks[0][name]
+            ref_losses, ref_state = refs[B]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref_losses))
+            w_abs = max((got["state"][k] - v).abs().max().item() for k, v in ref_state.items())
+            readings[name] = (loss_rel, w_abs)
+            kl = [a + b for a, b in zip(ranks[0][name]["launches"], ranks[1][name]["launches"])]
+            sound = control is None
+            inside = loss_rel <= LM_WORLD_LOSS_REL and w_abs <= LM_WORLD_WEIGHT_ABS
+            print(f"[lm-mesh] {name} ({'sound' if sound else 'control: ' + control}), "
+                  f"dp {dp} x tp {tp}{' fsdp' if fsdp else ''}{' zero wus' if zero != 'none' else ''}"
+                  f", 2 gloo ranks on one card vs 1 rank, f32 TF32 off, {mcfg['n_layers']} layers "
+                  f"at the LM width, B={B} L={TL}, {steps} steps: losses {got['losses']} vs "
+                  f"{ref_losses} (max rel {loss_rel}, limit {LM_WORLD_LOSS_REL}); weights max "
+                  f"abs diff {w_abs} (limit {LM_WORLD_WEIGHT_ABS}); launches K1/K2/K3 of both "
+                  f"ranks {kl}; resident parameter / momentum bytes per rank "
+                  f"{[ranks[r][name]['param_bytes'] for r in range(2)]} / "
+                  f"{[ranks[r][name]['momentum_bytes'] for r in range(2)]}; card {card}")
+            if sound != inside:
+                raise SystemExit(f"{name}: {'outside' if sound else 'inside'} the 2-rank limits")
+            if sound:
+                if kl != [2 * mcfg["n_layers"] * steps] * 3:
+                    raise SystemExit(f"{name}: K1-K3 launched {kl} times")
+                total = [a + b for a, b in zip(total, kl)]
+        dp_b = ranks[0]["dp2"]["param_bytes"] + ranks[0]["dp2"]["momentum_bytes"]
+        fs_b = ranks[0]["fsdp2"]["param_bytes"] + ranks[0]["fsdp2"]["momentum_bytes"]
+        print(f"[lm-mesh] resident parameter + momentum bytes per rank: FSDP 2 {fs_b} vs DP 2 "
+              f"{dp_b} ({fs_b / dp_b}); card {card}")
+        if not fs_b < 0.55 * dp_b:
+            raise SystemExit("FSDP 2 holds more than 0.55 of DP 2's bytes per rank")
+
+        text = open(logs[1]).read()
+        line = [l for l in text.splitlines() if l.startswith("tokens:")]
+        if len(line) != 1 or "tokens:" in open(logs[3]).read():
+            raise SystemExit(f"lm_generate --tp 2: rank 0 must print the tokens once:\n{text}")
+        got = torch.tensor([json.loads(line[0].split(":", 1)[1])], device=dev)
+        compared, gaps = _greedy_rule(gmodel, gprompt, got, gwant, 1e-3,
+                                      "lm_generate --tp 2 vs --tp 1")
+        print(f"[lm-mesh] lm_generate --tp 2 (2 gloo ranks, 8 heads each, dense prefill) vs "
+              f"--tp 1, f32, {cfg['n_layers']} layers at the LM width, {len(prompt)}-token "
+              f"prompt, {gen_new} new tokens: {compared} of {gen_new} tokens equal before the "
+              f"first difference, top-2 gaps there {gaps}; card {card}")
+        del gmodel
+        print(f"[time] phase 22: world 1 {t_a} s, the 2-rank processes with the references "
+              f"{t_bc} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2855,20 +3168,26 @@ def main() -> int:
     zoo_phase(dev, card)
     print(f"[time] phase 21 took {time.perf_counter() - t0} s")
 
+    # 22. LM training across ranks and lm_generate --tp
+    t0 = time.perf_counter()
+    k1_mesh, k2_mesh, k3_mesh = lm_mesh_phase(dev, card, cfg, lm_unfused_ms)
+    print(f"[time] phase 22 took {time.perf_counter() - t0} s")
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
         source="pytorch_distributed_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="pytorch_distributed_tpu/ops/flash_attention.py:37",
-        launches=serve_launches + train_launches[0] + k1 + k1_gen + k1_ce + k1_int8 + k1_a9,
+        launches=(serve_launches + train_launches[0] + k1 + k1_gen + k1_ce + k1_int8 + k1_a9
+                  + k1_mesh),
         max_abs_err=path["err"],
         ms=path["ms"], plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
         bound_by=path["bound_by"], library_ms=path["library_ms"])]
     bpath = bwd["path"]
     for name, key, line, n in (("flash_attention_bwd_dq", "dq", 185,
-                                train_launches[1] + k2 + k2_ce + k2_a9),
+                                train_launches[1] + k2 + k2_ce + k2_a9 + k2_mesh),
                                ("flash_attention_bwd_dkv", "dkv", 214,
-                                train_launches[2] + k3 + k3_ce + k3_a9)):
+                                train_launches[2] + k3 + k3_ce + k3_a9 + k3_mesh)):
         kernels.append(dict(
             name=name, route="cuda",
             source="pytorch_distributed_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -2887,7 +3206,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-21 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-22 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2901,4 +3220,8 @@ if __name__ == "__main__":
         sys.exit(recipe_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--a9-worker"]:
         sys.exit(a9_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--lm-worker"]:
+        sys.exit(lm_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--lm-mesh-worker"]:
+        sys.exit(lm_mesh_worker(sys.argv[2:]))
     sys.exit(main())

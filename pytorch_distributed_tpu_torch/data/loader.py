@@ -17,8 +17,10 @@
 
 from __future__ import annotations
 
-import os
+import contextlib
+import pickle
 import queue
+import sys
 import threading
 import time
 import warnings
@@ -30,6 +32,7 @@ import torch
 
 from pytorch_distributed_tpu_torch.data.sampler import DistributedShardSampler
 from pytorch_distributed_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from pytorch_distributed_tpu_torch.data.workers import _process_fetch_chunk, _process_init
 
 Batch = Dict[str, np.ndarray]
 
@@ -207,8 +210,9 @@ class DataLoader:
         self.close()
         ctx = mp.get_context("spawn")
         _install_pool_reaper()  # after multiprocessing's own atexit hook: ours runs first
-        self._pool = ctx.Pool(self.num_workers, initializer=_process_init,
-                              initargs=(self.dataset,))
+        with _spawn_without_main(self.dataset):
+            self._pool = ctx.Pool(self.num_workers, initializer=_process_init,
+                                  initargs=(self.dataset,))
         _LIVE_POOLS.append(self._pool)
         self._pool_key = (self.dataset, self.num_workers)
         return self._pool
@@ -245,6 +249,30 @@ class DataLoader:
             yield self._assemble(b, val, samples)
 
 
+@contextlib.contextmanager
+def _spawn_without_main(payload):
+    """Inside: a process that ``multiprocessing`` spawns imports what it
+    unpickles (``workers.py`` and the dataset's modules, numpy only) and
+    does not first run the parent's main module, which it finds by
+    ``__main__.__spec__`` under ``python -m`` and else by its ``__file__``:
+    a recipe's main module imports torch and the whole port, seconds a
+    worker.  Where ``payload`` pickles a reference to ``__main__`` (a
+    dataset class defined in the user's script), the main module runs as
+    usual."""
+    main = sys.modules["__main__"]
+    if b"__main__" in pickle.dumps(payload):
+        yield
+        return
+    spec, path = getattr(main, "__spec__", None), main.__dict__.pop("__file__", None)
+    main.__spec__ = None
+    try:
+        yield
+    finally:
+        main.__spec__ = spec
+        if path is not None:
+            main.__file__ = path
+
+
 _LIVE_POOLS: list = []
 _REAPER_INSTALLED = False
 
@@ -273,33 +301,6 @@ def _install_pool_reaper() -> None:
 
     atexit.register(_reap)
     _REAPER_INSTALLED = True
-
-
-_PROC_DATASET = None  # per-worker global, set by _process_init
-
-
-def _process_init(dataset) -> None:
-    global _PROC_DATASET
-    # A data worker decodes on the host only: hide the cards from it, so
-    # nothing it runs can create a CUDA context.
-    os.environ["CUDA_VISIBLE_DEVICES"] = ""
-    _PROC_DATASET = dataset
-
-
-def _process_fetch(args):
-    index, valid, seed, epoch = args
-    if not valid:
-        return None  # a padding slot
-    rng = np.random.default_rng((seed, epoch, index))
-    ds = _PROC_DATASET
-    if hasattr(ds, "get"):
-        return ds.get(index, rng)
-    return ds[index]
-
-
-def _process_fetch_chunk(chunk):
-    """One task per worker per batch: fetch a whole contiguous chunk."""
-    return [_process_fetch(a) for a in chunk]
 
 
 class DeviceFeeder:

@@ -84,12 +84,28 @@ def generate(model: TransformerLM, prompt: torch.Tensor, max_new_tokens: int,
         return torch.multinomial(probs, 1, generator=gen).squeeze(-1)
 
     cache = model.new_cache(B, P + max_new_tokens)
-    tok = pick(model(prompt, cache=cache, flash_prefill=flash_prefill)[:, -1])
+    # Under tensor parallelism every rank picks from the gathered logits
+    # with the same generator, so the ranks feed the same token.
+    last = (lambda x: model.full_logits(x[:, -1])) if getattr(model, "tp", 1) > 1 else (
+        lambda x: x[:, -1])
+    tok = pick(last(model(prompt, cache=cache, flash_prefill=flash_prefill)))
     out = [tok]
     for _ in range(max_new_tokens - 1):
-        tok = pick(model(tok[:, None], cache=cache)[:, -1])
+        tok = pick(last(model(tok[:, None], cache=cache)))
         out.append(tok)
     return torch.stack(out, dim=1).to(torch.int32)
+
+
+def tp_generate(model: TransformerLM, prompt: torch.Tensor, max_new_tokens: int,
+                **kw) -> torch.Tensor:
+    """Model-parallel decode: ``model`` holds this rank's Megatron shard
+    (``TransformerLM(mesh=...)`` over a ``model`` group: qkv/fc1 column-,
+    proj/fc2 row-parallel, the vocab-sharded embedding, head-sharded KV
+    caches); every rank of the group calls it and gets the same tokens.
+    The prompt takes the dense prefill, as the JAX ``tp_generate`` does
+    (``flash_prefill=False``)."""
+    kw.setdefault("flash_prefill", False)
+    return generate(model, prompt, max_new_tokens, **kw)
 
 
 def greedy_generate(model: TransformerLM, prompt: torch.Tensor,

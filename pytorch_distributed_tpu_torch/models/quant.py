@@ -142,6 +142,9 @@ def quantize_lm(model):
     the compute dtype, the values every use casts them to."""
     if model.quant:
         raise ValueError(f"model is already quantized ({model.quant!r})")
+    if getattr(model, "tp", 1) > 1 or getattr(model, "fsdp", None) is not None:
+        raise ValueError("quantize the whole model, then shard it: a row-parallel shard's "
+                         "channel scales are not the whole kernel's")
     qmodel = type(model)(**{**model.config, "quant": "int8", "param_dtype": model.dtype})
     qmodel.load_state_dict(quantize_state_dict(model.state_dict(), device=model.device))
     return qmodel.requires_grad_(False)

@@ -20,8 +20,12 @@ by speculation (``models/speculative.py``) with a draft of ``--spec-*``
 width (JAX defaults: a quarter of the target's), loaded from an
 ``lm_pretrain`` checkpoint or random, and prints the JAX stats line.
 
-``--tp`` is parsed but not ported yet: it exits with the ROADMAP item that
-will port it.  Orbax checkpoint directories exit too: orbax imports JAX.
+``--tp N`` decodes Megatron-sharded over N ranks of a ``model`` group
+(``models/generate.py::tp_generate``): run it under a launcher with N
+ranks (``torchrun --nproc_per_node N``, or ``PTD_TPU_*`` with ``--device
+cpu`` over gloo); each rank builds the whole model, quantizes it when
+asked, keeps its part, and rank 0 prints the tokens.  Orbax checkpoint
+directories exit: orbax imports JAX.
 """
 
 from __future__ import annotations
@@ -31,17 +35,14 @@ import argparse
 import numpy as np
 import torch
 
-from pytorch_distributed_tpu_torch.models.generate import generate
+from pytorch_distributed_tpu_torch.models.generate import generate, tp_generate
+from pytorch_distributed_tpu_torch.models.quant import quantize_lm
 from pytorch_distributed_tpu_torch.models.speculative import speculative_generate
 from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
 from pytorch_distributed_tpu_torch.train.checkpoint import load_checkpoint
+from pytorch_distributed_tpu_torch.parallel import initialize, shutdown
+from pytorch_distributed_tpu_torch.parallel.mesh import MeshSpec, build_mesh, device_for
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
-
-# Flags parsed for the JAX recipe's surface, each with the ROADMAP item
-# (queue A) that will port it.
-NOT_PORTED = {
-    "tp": "A7 (model-parallel decode, --tp)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,7 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--precision", choices=("fp32", "bf16"), default="fp32")
     p.add_argument("--tp", type=int, default=1,
-                   help="model-parallel decode (not ported yet)")
+                   help="model-parallel decode over this many ranks "
+                        "(Megatron-sharded params and KV caches)")
     p.add_argument("--quant", choices=("", "int8"), default="",
                    help="int8 = weight-only quantized block kernels")
     p.add_argument("--spec-draft", default="",
@@ -116,26 +118,17 @@ def main(argv=None) -> int:
     if args.spec_draft and args.tp > 1:
         raise SystemExit("--spec-draft is batch-1 single-device "
                          "serving; it does not compose with --tp")
-    for dest, item in NOT_PORTED.items():
-        if getattr(args, dest) not in ("", 1):
-            raise SystemExit(f"--{dest.replace('_', '-')} is not ported to the "
-                             f"PyTorch package yet: ROADMAP.md item {item}")
     if not args.random_init and not args.resume:
         raise SystemExit("provide --resume CHECKPOINT (or --random-init)")
+    if args.tp > 1:
+        ctx = initialize(device=args.device)
+        try:
+            return _main_tp(args, ctx)
+        finally:
+            shutdown(ctx)
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
-
-    # f32 weights when they will be quantized: the scales come from the
-    # checkpoint's own numbers, as in the JAX recipe.
-    model = TransformerLM(vocab_size=args.vocab, d_model=args.d_model,
-                          n_heads=args.n_heads, n_layers=args.n_layers, dtype=dtype,
-                          device=device, param_dtype=torch.float32 if args.quant else None)
-    model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
-    if args.resume:
-        meta = _load(args.resume, model)
-        print(f"loaded {args.resume} (epoch {meta.get('epoch')}, "
-              f"arch {meta.get('arch') or 'transformer_lm'})")
-
+    model = _load_model(args, device, dtype)
     prompt = torch.from_numpy(_encode_prompt(args)).to(device)
     if args.spec_draft:
         draft = TransformerLM(
@@ -160,6 +153,45 @@ def main(argv=None) -> int:
         out = generate(model, prompt, args.max_new_tokens,
                        temperature=args.temperature, top_k=args.top_k,
                        top_p=args.top_p, seed=args.seed, quant=args.quant)
+    _print(args, out)
+    return 0
+
+
+def _load_model(args, device, dtype, quantize: bool = False):
+    """The whole model from ``--seed`` or ``--resume``; f32 weights when
+    they will be quantized (the scales come from the checkpoint's own
+    numbers, as in the JAX recipe), quantized here when ``quantize``."""
+    model = TransformerLM(vocab_size=args.vocab, d_model=args.d_model,
+                          n_heads=args.n_heads, n_layers=args.n_layers, dtype=dtype,
+                          device=device, param_dtype=torch.float32 if args.quant else None)
+    model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
+    if args.resume:
+        meta = _load(args.resume, model)
+        print(f"loaded {args.resume} (epoch {meta.get('epoch')}, "
+              f"arch {meta.get('arch') or 'transformer_lm'})")
+    return quantize_lm(model) if quantize and args.quant else model
+
+
+def _main_tp(args, ctx) -> int:
+    """``--tp``: the mesh ``("model",)`` over the launcher's ranks; each
+    rank keeps its shard of the whole (quantized) model and decodes with
+    the others."""
+    mesh = build_mesh(MeshSpec(("model",), (args.tp,)), ctx)
+    device = device_for(ctx, args.device)
+    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    full = _load_model(args, device, dtype, quantize=True)
+    model = TransformerLM(**{**full.config, "mesh": mesh}).load_full_state_dict(
+        full.state_dict()).requires_grad_(False)
+    del full
+    prompt = torch.from_numpy(_encode_prompt(args)).to(device)
+    out = tp_generate(model, prompt, args.max_new_tokens, temperature=args.temperature,
+                      top_k=args.top_k, top_p=args.top_p, seed=args.seed)
+    if mesh.is_primary:
+        _print(args, out)
+    return 0
+
+
+def _print(args, out) -> None:
     toks = out[0].tolist()
     print("tokens:", toks)
     if args.vocab >= 256 and args.prompt:
@@ -169,7 +201,6 @@ def main(argv=None) -> int:
             bytes([t]) if t < 256 else "�".encode() for t in toks
         ).decode("utf-8", "replace")
         print("text:", repr(args.prompt + text))
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""LM pretraining on one device: the port of ``pytorch_distributed_tpu/recipes/lm_pretrain.py``.
+"""LM pretraining, on one device or across ranks: the port of
+``pytorch_distributed_tpu/recipes/lm_pretrain.py``.
 
 Next-token training of the TransformerLM (``train/lm.py``) with f32 master
 weights and ``--precision`` compute (bf16 by default), on the synthetic
@@ -20,19 +21,35 @@ at its exact step.
 cross-entropy (``ops/fused_ce.py``): the ``[B, L, vocab]`` logits never
 exist at once.
 
-``--grad-compress bf16|int8|fp8`` (the numerics emulation), ``--zero wus``
-(a no-op on one device, as in JAX at world 1) and ``--overlap bucketed``
-with ``--bucket-mb`` (the explicit step's bucketed sync) are the
-gradient-communication stack of ``train/lm.py``; the LM has no process
-group yet (ROADMAP.md item A21).
+Across ranks (``parallel/dist.py::initialize``: a launcher's environment,
+``PTD_TPU_*``, SLURM or ``torch.distributed.run``) the recipe builds the
+JAX recipe's non-pipelined mesh, ``data × model`` with ``model`` innermost
+(``parallel/mesh.py``): data parallelism over every rank by default, each
+rank training on its contiguous rows of the global batch; ``--tp N``
+Megatron tensor parallelism over groups of N consecutive ranks
+(``parallel/tp.py``); ``--fsdp`` the parameters and momentum sharded over
+the data axis (``parallel/fsdp.py``).  Rank 0 writes the checkpoints, in the
+whole model's JAX layout, so any mesh resumes any other's file::
+
+    torchrun --nproc_per_node 4 -m pytorch_distributed_tpu_torch.recipes.lm_pretrain \
+        --tp 2 --fsdp ...
+    for r in 0 1; do PTD_TPU_COORDINATOR=127.0.0.1:29500 PTD_TPU_NUM_PROCESSES=2 \
+        PTD_TPU_PROCESS_ID=$r python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain \
+        --device cpu --tp 2 ... & done; wait
+
+``--grad-compress bf16|int8|fp8`` (the numerics emulation on the averaged
+gradient), ``--zero wus`` (the momentum in chunks over the data group) and
+``--overlap bucketed`` with ``--bucket-mb`` (the explicit pure-DP step's
+bucketed sync, on the real collectives) are the gradient-communication
+stack of ``train/lm.py``.
 
 The flag surface is the JAX recipe's plus ``--device`` (default ``cuda``).
 Its argument checks run first, in its order (``--remat`` applies to the
 pipeline stages only, so without ``--pp`` it exits with the JAX message).
-Every flag of a layer not ported yet (parallel layouts, the pipeline and
-its remat among them, fault tolerance, observability) is parsed, and a
-value other than its default exits naming the ROADMAP item that will port
-it.  The JAX recipe's SIGTERM preemption guard is one of them: here
+Every flag of a layer not ported yet (sequence and expert parallelism,
+the pipeline and its remat, fault tolerance, observability) is parsed, and
+a value other than its default exits naming the ROADMAP item that will
+port it.  The JAX recipe's SIGTERM preemption guard is one of them: here
 SIGTERM ends the process.
 """
 
@@ -44,23 +61,26 @@ import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.models.generate import greedy_generate
-from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
+from pytorch_distributed_tpu_torch.models.transformer import TransformerLM, lm_shapes
+from pytorch_distributed_tpu_torch.parallel import initialize, shutdown
+from pytorch_distributed_tpu_torch.parallel import tp as tp_lib
+from pytorch_distributed_tpu_torch.parallel.fsdp import apply_fsdp
+from pytorch_distributed_tpu_torch.parallel.mesh import MeshSpec, build_mesh, device_for
 from pytorch_distributed_tpu_torch.train.lm import (
     LMTrainer,
     SyntheticTokenDataset,
     TextFileDataset,
     warmup_cosine_lr,
 )
-from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
-_PARALLEL = "A10 (model parallelism: --tp, --sp, --ep, --pp, --fsdp)"
+_PARALLEL = "A10 (model parallelism: --sp, --ep, --pp)"
 _FT = "A11 (fault tolerance: --nan-guard, --elastic, the preemption guard)"
 _OBS = "A12 (observability: metrics, heartbeats, ledgers, alerts)"
 # Flags parsed for the JAX recipe's surface but not ported, each with the
 # ROADMAP item (queue A) that will port it.
 NOT_PORTED = {
-    **dict.fromkeys(("tp", "sp", "sp_impl", "ep", "moe_top_k", "pp",
-                     "microbatches", "schedule", "pp_virtual", "fsdp"), _PARALLEL),
+    **dict.fromkeys(("sp", "sp_impl", "ep", "moe_top_k", "pp",
+                     "microbatches", "schedule", "pp_virtual"), _PARALLEL),
     **dict.fromkeys(("preempt_signals", "nan_guard", "ft_rollback_k",
                      "ft_check_every", "ft_lr_backoff", "elastic", "min_ranks",
                      "rescale_lr"), _FT),
@@ -94,11 +114,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused-ce-mode", default="auto",
                    choices=("auto", "replicated", "dp", "tp"),
                    dest="fused_ce_mode",
-                   help="fused-CE sharding variant (one device: auto = "
-                        "replicated; dp and tp need a mesh, ROADMAP A10)")
+                   help="fused-CE sharding variant (auto picks from "
+                        "the mesh and param specs; see "
+                        "train/lm.py resolve_fused_ce_mode)")
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient accumulation over strided microbatches")
-    p.add_argument("--tp", type=int, default=1, help="not ported yet")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Megatron tensor parallelism over a 'model' mesh "
+                        "axis of this size (parallel/tp.py)")
     p.add_argument("--sp", type=int, default=1, help="not ported yet")
     p.add_argument("--sp-impl", choices=("ring", "a2a"), default="ring",
                    help="not ported yet")
@@ -113,7 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true",
                    help="rematerialize the pipeline stages (requires --pp > 1; "
                         "not ported yet)")
-    p.add_argument("--fsdp", action="store_true", help="not ported yet")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard params + momentum over the data axis "
+                        "(FSDP/ZeRO-3 layout, parallel/fsdp.py)")
     p.add_argument("--precision", choices=("fp32", "bf16"), default="bf16",
                    help="compute dtype; weights stay f32")
     p.add_argument("--zero", choices=("none", "wus"), default="none",
@@ -269,9 +294,20 @@ def check_args(args) -> None:
                          "--fsdp/--fused-ce/--accum-steps/--zero/--elastic")
 
 
+def check_mesh_args(args, n: int) -> None:
+    """The JAX recipe's checks that need the device count ``n``, in its
+    order and words (those of layouts not ported exit before)."""
+    if n % (args.tp * args.sp * args.ep * args.pp):
+        raise SystemExit(f"{n} devices not divisible by tp*sp*ep*pp")
+    if args.generate > 0 and (args.tp > 1 or args.sp > 1 or args.ep > 1
+                              or args.pp > 1):
+        raise SystemExit("--generate supports plain dp runs only")
+
+
 def run(argv=None) -> LMTrainer:
-    """Parse ``argv``, build the model and data, train, optionally decode;
-    returns the trainer."""
+    """Parse ``argv``, join the launcher's process group (if any), build the
+    mesh, the model and the data, train, optionally decode; returns the
+    trainer (its ``ctx`` still up; ``main`` shuts it down)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     check_args(args)
@@ -279,13 +315,35 @@ def run(argv=None) -> LMTrainer:
         if getattr(args, dest) != parser.get_default(dest):
             raise SystemExit(f"--{dest.replace('_', '-')} is not ported to the "
                              f"PyTorch package yet: ROADMAP.md item {item}")
-    device = resolve_device(args.device)
+    ctx = initialize(device=args.device)
+    try:
+        return _run(args, ctx)
+    except BaseException:
+        shutdown(ctx)
+        raise
+
+
+def _run(args, ctx) -> LMTrainer:
+    n = ctx.process_count
+    check_mesh_args(args, n)
+    device = device_for(ctx, args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     if args.text_glob:
         args.vocab = TextFileDataset.vocab  # before the model is built
+    # The composable data x model mesh: the data axis takes the remaining
+    # ranks; 'model' is innermost, so a tensor group is consecutive ranks.
+    axes, shape = ["data"], [n // args.tp]
+    if args.tp > 1:
+        axes.append("model")
+        shape.append(args.tp)
+    mesh = build_mesh(MeshSpec(tuple(axes), tuple(shape)), ctx)
+    tp_lib.check_tp(lm_shapes(args.vocab, args.d_model, args.n_layers), mesh.size("data"),
+                    args.tp)
     model = TransformerLM(vocab_size=args.vocab, d_model=args.d_model,
                           n_heads=args.n_heads, n_layers=args.n_layers,
-                          dtype=dtype, param_dtype=torch.float32, device=device)
+                          dtype=dtype, param_dtype=torch.float32, device=device, mesh=mesh)
+    if args.fsdp:
+        apply_fsdp(model, mesh)
     model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
 
     if args.text_glob:
@@ -327,11 +385,12 @@ def run(argv=None) -> LMTrainer:
                             checkpoint_dir=args.checkpoint_dir,
                             save_steps=args.save_steps, resume=args.resume,
                             grad_compress=args.grad_compress, zero=args.zero,
-                            overlap=args.overlap, bucket_mb=args.bucket_mb)
+                            overlap=args.overlap, bucket_mb=args.bucket_mb, mesh=mesh)
     except NotImplementedError as e:  # an orbax checkpoint directory
         raise SystemExit(str(e)) from e
+    trainer.ctx = ctx
     final_loss = trainer.fit(args.steps, print_freq=args.print_freq)
-    if args.generate > 0:
+    if args.generate > 0:  # plain-dp only, validated with the args above
         prompt = torch.from_numpy(dataset.batch(0, 1)[:, :min(16, args.seq_len // 2)])
         toks = greedy_generate(model, prompt.to(device), args.generate)
         print(" * Generated:", " ".join(map(str, np.asarray(toks.cpu())[0])),
@@ -341,8 +400,11 @@ def run(argv=None) -> LMTrainer:
 
 
 def main(argv=None) -> float:
-    """Train as ``run`` does; returns the final step's loss."""
-    return float(run(argv).losses[-1])
+    """Train as ``run`` does, then leave the process group; returns the
+    final step's loss."""
+    trainer = run(argv)
+    shutdown(trainer.ctx)
+    return float(trainer.losses[-1])
 
 
 if __name__ == "__main__":

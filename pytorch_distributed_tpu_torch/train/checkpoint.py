@@ -156,6 +156,7 @@ def save_checkpoint(
     ft: Optional[Dict[str, Any]] = None,
     momentum: Optional[Dict[str, Any]] = None,
     residual: Optional[Dict[str, Any]] = None,
+    params: Optional[Dict[str, Any]] = None,
 ) -> str:
     """Atomic save of ``model``, the momentum of ``optimizer`` and the
     global ``step`` (the reference's rank-0 ``save_checkpoint``, one
@@ -163,7 +164,10 @@ def save_checkpoint(
 
     ``momentum`` / ``residual``: JAX-layout trees that replace the
     optimizer's momentum and add the error-feedback residual
-    (``GradSync.checkpoint_trees``, which every rank computes first).
+    (``GradSync.checkpoint_trees``, which every rank computes first);
+    ``params``: one that replaces the model's (a sharded model's gathered
+    whole, which every rank computes first; ``model`` and ``optimizer`` are
+    then not read).
 
     ``ft``: optional step-granular resume record (see ``FT_DEFAULTS``);
     omitted fields default to the epoch-boundary semantics.  Write
@@ -171,7 +175,8 @@ def save_checkpoint(
     ``checkpoint.prev.msgpack`` (with its sidecar) first, then the new
     sidecar, so the directory always holds one complete, verifiable
     checkpoint; the sequence is retried with bounded backoff on OSError."""
-    state = state_trees(model, optimizer)
+    state = ({"batch_stats": {}, "momentum": momentum, "params": params} if params is not None
+             else state_trees(model, optimizer))
     if momentum is not None:
         state["momentum"] = momentum
     if residual:
@@ -248,6 +253,13 @@ def _torch_state(model: torch.nn.Module, saved: Dict[str, Any], with_momentum: b
     the model's names and shapes before anything is written into it."""
     device = next(model.parameters()).device
     want = model.state_dict()
+    if _sharded(model):   # checked against the whole model's shapes
+        from pytorch_distributed_tpu_torch.models.transformer import lm_shapes
+
+        cfg = model.config
+        want = {k: torch.empty(v, device="meta") for k, v in
+                lm_shapes(cfg["vocab_size"], cfg["d_model"], cfg["n_layers"],
+                          cfg["quant"]).items()}
     if _is_lm(want):
         sd = lm_state_dict_from_jax(saved["params"], device=device)
         mom = lm_state_dict_from_jax(saved["momentum"], device=device) if with_momentum else None
@@ -270,6 +282,11 @@ def _torch_state(model: torch.nn.Module, saved: Dict[str, Any], with_momentum: b
                              f"{tuple(got[bad[0]].shape)}, the model's "
                              f"{tuple(want[bad[0]].shape)}")
     return sd, mom
+
+
+def _sharded(model: torch.nn.Module) -> bool:
+    """A TransformerLM holding a tensor-parallel or FSDP part of itself."""
+    return getattr(model, "tp", 1) > 1 or getattr(model, "fsdp", None) is not None
 
 
 def _load_msgpack(path: str, model: torch.nn.Module,
@@ -303,13 +320,26 @@ def _load_msgpack(path: str, model: torch.nn.Module,
         raise CheckpointCorruptError(
             f"checkpoint '{path}' failed to deserialize and carries no "
             f"sha256 sidecar to pinpoint corruption: {e}") from e
+    momentum_tree = saved["momentum"]
+    if _sharded(model):
+        # Any mesh's file into any mesh: the whole tensors, then this
+        # rank's part of each.
+        sd = model.shard_state_dict(sd)
+        mom = model.shard_state_dict(mom) if mom is not None else None
+        if wus:
+            momentum_tree = lm_params_to_jax(model.shard_state_dict(
+                lm_state_dict_from_jax(momentum_tree, device=device)))
+        if residual and not (comm is not None and (comm.explicit
+                                                    or getattr(comm, "full_residual", False))):
+            residual = lm_params_to_jax(model.shard_state_dict(
+                lm_state_dict_from_jax(residual, device=device)))
     with torch.no_grad():
         model.load_state_dict(sd)
         if optimizer is not None and not wus:
             for name, p in model.named_parameters():
                 optimizer.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(mom[name])
     if comm is not None:
-        comm.load(saved["momentum"] if wus else None, residual)
+        comm.load(momentum_tree if wus else None, residual)
     del raw, tree, saved
     return step, meta
 

@@ -187,33 +187,13 @@ class GradSync:
 
     def wus_step(self, count: torch.Tensor, lr: float, momentum: float, weight_decay: float,
                  want_norm: bool) -> Optional[torch.Tensor]:
-        """The weight-update-sharded step after the backward: reduce-scatter,
-        divide by ``count``, the SGD on this rank's rows, all-gather (or stage
-        the delta).  Returns the global gradient norm when ``want_norm``."""
-        dev = self.params[0].device
-        rows = []
-        if self.quantized and not self.explicit:
-            # GSPMD twin: the emulation needs the whole averaged gradient.
-            summed = qcomm.sum_finish(
-                qcomm.sum_start([self._grad_or_zeros(i) for i in range(len(self.params))],
-                                self.group), [p.shape for p in self.params])
-            for p, g in zip(self.params, summed):
-                p.grad = torch.div(g, count, out=torch.empty_like(p))
-            self.emulate_grads()
-            rows = [b.lay.own_row(self._grads(b), self.rank, dev) for b in self.buckets]
-        else:
-            self.launch_rest()
-            for b in self.buckets:
-                ctx, b.ctx = b.ctx, None
-                if self.quantized:
-                    row = qcomm.owned_sum(b.lay, ctx)
-                    b.residual = qcomm.stage1_error(b.lay, ctx)
-                else:
-                    row = qcomm.scatter_finish(ctx)
-                row = row / count
-                if not self.explicit and self.cast is not None:
-                    row = row.to(self.cast).float()
-                rows.append(row)
+        """The weight-update-sharded step after the backward: this rank's
+        rows of the averaged gradient (``wus_rows``), the twin's cast, then
+        ``wus_update``.  Returns the global gradient norm when ``want_norm``
+        (of the gradient the update takes, as the image steps log it)."""
+        rows = self.wus_rows(count)
+        if not self.explicit and self.cast is not None:
+            rows = [row.to(self.cast).float() for row in rows]
         gnorm = None
         if want_norm:
             if self.quantized and not self.explicit:
@@ -221,6 +201,45 @@ class GradSync:
             else:
                 gnorm = all_reduce_sum(zero_lib.chunk_sq_sum(rows), self.group)
             gnorm = gnorm.sqrt()
+        self.wus_update(rows, lr, momentum, weight_decay)
+        return gnorm
+
+    def wus_rows(self, count: torch.Tensor) -> List[torch.Tensor]:
+        """This rank's rows of the gradient summed over the ranks and divided
+        by ``count``, one per bucket: the reduce-scatter (on the explicit
+        step's wire); the GSPMD twin under a quantized mode all-reduces,
+        emulates on the whole gradient and takes its rows."""
+        if self.quantized and not self.explicit:
+            summed = qcomm.sum_finish(
+                qcomm.sum_start([self._grad_or_zeros(i) for i in range(len(self.params))],
+                                self.group), [p.shape for p in self.params])
+            for p, g in zip(self.params, summed):
+                p.grad = torch.div(g, count, out=torch.empty_like(p))
+            self.emulate_grads()
+            return self.grad_rows()
+        self.launch_rest()
+        rows = []
+        for b in self.buckets:
+            ctx, b.ctx = b.ctx, None
+            if self.quantized:
+                row = qcomm.owned_sum(b.lay, ctx)
+                b.residual = qcomm.stage1_error(b.lay, ctx)
+            else:
+                row = qcomm.scatter_finish(ctx)
+            rows.append(row / count)
+        return rows
+
+    def grad_rows(self) -> List[torch.Tensor]:
+        """This rank's rows of the ``.grad``s as they stand (already synced)."""
+        dev = self.params[0].device
+        return [b.lay.own_row(self._grads(b), self.rank, dev) for b in self.buckets]
+
+    def wus_update(self, rows: Sequence[torch.Tensor], lr: float, momentum: float,
+                   weight_decay: float) -> None:
+        """The SGD on this rank's ``rows`` of the gradient and of the
+        momentum, then the all-gather of the new parameters (or of the
+        delta, or staged as ``pending``)."""
+        dev = self.params[0].device
         for b, row in zip(self.buckets, rows):
             p_row = b.lay.own_row([self.leaves[i].to_jax(self.params[i].detach())
                                    for i in b.index], self.rank, dev)
@@ -236,7 +255,6 @@ class GradSync:
             else:
                 self._apply(b, qcomm.gather_flat(b.lay, p_row.add(buf, alpha=-lr), self.group),
                             subtract=False)
-        return gnorm
 
     @torch.no_grad()
     def _apply(self, b: _Bucket, full: torch.Tensor, subtract: bool) -> None:

@@ -1,10 +1,11 @@
-"""Language-model pretraining on one device, the port of
+"""Language-model pretraining, on one device or across ranks: the port of
 ``pytorch_distributed_tpu/train/lm.py``.
 
 - ``SyntheticTokenDataset`` (a learnable affine token process, the LM smoke
   oracle), ``TextFileDataset`` (byte-level LM over files), the step-indexed
-  wrap-around batching and ``warmup_cosine_lr``: copies of the JAX module's,
-  numpy in and out, so both packages see the same tokens.
+  wrap-around batching (``rows=``: one rank's rows only) and
+  ``warmup_cosine_lr``: copies of the JAX module's, numpy in and out, so
+  both packages see the same tokens.
 - ``make_lm_train_step``: next-token cross-entropy and accuracy (through
   the fused tied-head loss of ``ops/fused_ce.py`` with
   ``fused_ce_chunks``), optional global-norm clipping (the JAX formula) and
@@ -18,38 +19,57 @@
   package's format (``train/checkpoint.py``): every ``save_steps`` and at the
   end of ``fit`` into ``checkpoint_dir``, and ``resume`` to the exact step.
 
-The gradient-communication stack (``train/gradsync.py``), as the JAX LM
-step runs it on one device: ``grad_compress`` ``bf16`` / ``int8`` / ``fp8``
-is the numerics emulation on the (clipped) gradient, with a param-shaped
-error-feedback residual; ``overlap="bucketed"`` takes the port of the JAX explicit step, the
-gradient synced per bucket by the local one-rank collectives (quantized
-twice under int8/fp8, the residual stacked ``(1, *shape)``) and clipped
-after; ``zero="wus"`` shards the momentum over a data axis of one, which
-changes nothing, as in JAX at world 1.  The residual rides in checkpoints.
+Across ranks (a ``parallel/mesh.py`` mesh, ``data × model``) the step keeps
+the JAX GSPMD step's semantics: each rank trains on its data index's
+contiguous rows of the global batch (``_row_span``), loss and accuracy are
+means over the global batch, the gradients are summed over the data group
+(FSDP: reduce-scattered), the global norm counts every element once, and
+rank 0 writes the whole model's checkpoint, which any mesh loads.
 
-Not ported yet (ROADMAP.md queue A): data parallelism across ranks for the
-LM (A21), meshes and every parallel layout (the fused CE head's ``dp`` and
-``tp`` variants with them), the observability and fault-tolerance layers,
-elastic membership and the background feeder thread.
+The gradient-communication stack (``train/gradsync.py``): ``grad_compress``
+``bf16`` / ``int8`` / ``fp8`` is the numerics emulation on the averaged,
+clipped gradient, with a param-shaped error-feedback residual (a sharded
+model gathers each leaf whole first, so the blocks are JAX's, under
+``zero="wus"`` too); ``overlap=
+"bucketed"`` takes the port of the JAX explicit pure-DP step, the gradient
+synced per bucket over the data group (quantized twice under int8/fp8, the
+residual stacked per rank) and clipped after; ``zero="wus"`` keeps the
+momentum in chunks over the data group (GSPMD's weight-update sharding;
+FSDP already shards it).  The residual rides in checkpoints.
+
+Not ported yet (ROADMAP.md queue A): sequence, expert and pipeline
+parallelism, the observability and fault-tolerance layers, elastic
+membership and the background feeder thread.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.ops import qcomm
-from pytorch_distributed_tpu_torch.ops.fused_ce import fused_ce_sums, resolve_fused_ce_mode
+from pytorch_distributed_tpu_torch.ops.fused_ce import (
+    fused_ce_sums,
+    fused_ce_sums_dp,
+    fused_ce_sums_tp,
+    resolve_fused_ce_mode,
+)
 from pytorch_distributed_tpu_torch.ops.loss import cross_entropy
 from pytorch_distributed_tpu_torch.parallel import overlap as overlap_lib
+from pytorch_distributed_tpu_torch.parallel import tp as tp_lib
 from pytorch_distributed_tpu_torch.parallel import zero as zero_lib
 from pytorch_distributed_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from pytorch_distributed_tpu_torch.train.gradsync import GradSync
 from pytorch_distributed_tpu_torch.train.meters import StepMeters
 from pytorch_distributed_tpu_torch.train.optim import sgd
+from pytorch_distributed_tpu_torch.utils.convert import (
+    lm_params_to_jax,
+    lm_state_dict_from_jax,
+    momentum_state_dict,
+)
 
 
 class SyntheticTokenDataset:
@@ -87,10 +107,14 @@ class SyntheticTokenDataset:
         return _wraparound_batch(self, step, batch_size)
 
 
-def _wraparound_batch(ds, step: int, batch_size: int) -> np.ndarray:
-    """Sequential wrap-around batching shared by the LM datasets."""
+def _wraparound_batch(ds, step: int, batch_size: int,
+                      rows: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """Sequential wrap-around batching shared by the LM datasets.
+    ``rows=(lo, hi)``: assemble only that row range of the logical global
+    batch (multi-process: each rank builds just its own shard)."""
     base = (step * batch_size) % max(1, len(ds))
-    return np.stack([ds[(base + i) % len(ds)] for i in range(batch_size)])
+    lo, hi = rows if rows is not None else (0, batch_size)
+    return np.stack([ds[(base + i) % len(ds)] for i in range(lo, hi)])
 
 
 class TextFileDataset:
@@ -154,25 +178,82 @@ def _l2_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
 
 
-def lm_loss(model, tokens: torch.Tensor, fused_ce_chunks: int = 0
+def _mesh_of(model, mesh):
+    return mesh if mesh is not None else getattr(model, "mesh", None)
+
+
+def _mesh_norm(model, mesh, tensors: List[torch.Tensor], names: List[str]) -> torch.Tensor:
+    """The global L2 norm of ``tensors`` (one per parameter of ``names``)
+    over a mesh: each element counted once, however the leaves are split.
+    A leaf the mesh replicates counts on one rank of each axis it is
+    replicated over, and the square sums add over every rank; without
+    sharding, the local norm (synced gradients are the same everywhere)."""
+    fsdp = getattr(model, "fsdp", None)
+    tp = getattr(model, "tp", 1)
+    if mesh is None or (tp == 1 and fsdp is None):
+        return _l2_norm(tensors)
+    weights = tp_lib.sq_sum_weights(names, model.specs, mesh.index("model"),
+                                     [fsdp is not None and fsdp.sharded(n) for n in names],
+                                     mesh.index("data"))
+    sq = torch.stack([t.float().square().sum() * w for t, w in zip(tensors, weights)]).sum()
+    return tp_lib.all_reduce_sum(sq, _world(mesh)).sqrt()
+
+
+def _rows_norm(comm, rows: List[torch.Tensor], weights, group) -> torch.Tensor:
+    """The global L2 norm of every rank's ZeRO ``rows`` (disjoint chunks):
+    each leaf's chunk weighted (``tp_lib.sq_sum_weights``: a leaf the model
+    group replicates counts on one of its ranks), the square sums added over
+    ``group``."""
+    if weights is None:
+        sq = zero_lib.chunk_sq_sum(rows)
+    else:
+        sq = torch.stack([c.float().square().sum() * weights[i]
+                          for b, row in zip(comm.buckets, rows)
+                          for i, c in zip(b.index, b.lay.row_split(row))]).sum()
+    return tp_lib.all_reduce_sum(sq, group).sqrt()
+
+
+def _world(mesh):
+    """The group of every rank of the mesh (None at world 1)."""
+    return None if mesh is None else mesh.world
+
+
+def lm_loss(model, tokens: torch.Tensor, fused_ce_chunks: int = 0,
+            ce_mode: str = "replicated", data_group=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Next-token ``(mean cross-entropy, accuracy)`` of ``tokens [B, L]``:
     logits at positions 0..L-2 against tokens 1..L-1; the accuracy carries
     no gradient.  ``fused_ce_chunks > 0``: the JAX fused loss path, the
     pre-head hidden states and the tied embedding, both cast to the compute
-    dtype, through ``fused_ce_sums`` in that many row blocks."""
+    dtype, through ``fused_ce_sums`` (``ce_mode``: its ``dp`` variant over
+    ``data_group``, its ``tp`` variant over the model's tensor group) in
+    that many row blocks.  Under tensor parallelism the head's logits are
+    vocab-sharded: the vocab-parallel cross-entropy and argmax."""
+    group = getattr(model, "tp_group", None)
     if fused_ce_chunks:
         hidden = model(tokens, return_hidden=True)
         h = hidden[:, :-1].reshape(-1, hidden.shape[-1]).to(model.dtype)
         t = tokens[:, 1:].reshape(-1)
         w = torch.ones(t.shape, dtype=torch.float32, device=t.device)
-        e = model.embed.weight.to(model.dtype)
-        loss_sum, correct = fused_ce_sums(h, e, t, w, fused_ce_chunks)
+        e = model._param("embed.weight").to(model.dtype)
+        if ce_mode == "tp":
+            loss_sum, correct = fused_ce_sums_tp(h, e, t, w, fused_ce_chunks, model.vocab_lo,
+                                                 model.vocab_size, group)
+        elif ce_mode == "dp":
+            loss_sum, correct = fused_ce_sums_dp(h, e, t, w, fused_ce_chunks, data_group)
+        else:
+            if group is not None:
+                e = tp_lib.gather_param(e, model.specs["embed.weight"], group)
+            loss_sum, correct = fused_ce_sums(h, e, t, w, fused_ce_chunks)
         ntok = h.shape[0]
         return loss_sum / ntok, correct / ntok
     logits = model(tokens)
     flat = logits[:, :-1].reshape(-1, logits.shape[-1])
     targets = tokens[:, 1:].reshape(-1)
+    if group is not None:
+        loss = tp_lib.vocab_parallel_ce(flat, targets, model.vocab_lo, group).mean()
+        pred = tp_lib.vocab_parallel_argmax(flat, model.vocab_lo, model.vocab_size, group)
+        return loss, (pred == targets).float().mean()
     loss = cross_entropy(flat, targets)
     with torch.no_grad():
         acc = (flat.argmax(dim=-1) == targets).float().mean()
@@ -184,8 +265,17 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
                        log_norms: bool = False, fused_ce_chunks: int = 0,
                        fused_ce_mode: str = "auto", grad_compress: Optional[str] = None,
                        zero: str = "none", overlap: str = "none",
-                       bucket_mb: float = overlap_lib.DEFAULT_BUCKET_MB):
-    """``step(tokens [B, L], lr) -> metrics`` for one device.
+                       bucket_mb: float = overlap_lib.DEFAULT_BUCKET_MB, mesh=None):
+    """``step(tokens, lr) -> metrics``; ``tokens`` are this rank's rows of
+    the global batch (all of it without a mesh).
+
+    The JAX GSPMD step's semantics on a ``data × model`` mesh (``mesh``,
+    else the model's): loss and accuracy are means over the global batch's
+    tokens (each rank's mean over its equal share, averaged over the data
+    group), the gradients are summed over the data group and divided by
+    its size (reduce-scattered under FSDP, whose shards the model
+    gathers), the global norm counts every element once, and each rank
+    updates its own parameters and momentum.
 
     ``clip_grad_norm > 0`` rescales the gradients by ``min(1, clip /
     max(|g|, 1e-12))`` of their global L2 norm, the JAX formula (not
@@ -195,15 +285,20 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
     ``1/accum``, as the JAX step does.  ``log_norms`` adds ``grad_norm``
     (before clipping) and ``param_norm`` (after the update).
     ``fused_ce_chunks > 0`` takes the fused tied-head loss in that many row
-    blocks (``fused_ce_mode``: the JAX variant rule, ``replicated`` on one
-    device).  ``grad_compress``, ``zero``, ``overlap`` and ``bucket_mb``:
-    the gradient-communication stack (module docstring); ``step.comm``
-    holds its state.  Metrics are device scalars:
-    ``loss`` and ``acc`` in percent.
+    blocks (``fused_ce_mode``: the JAX variant rule).  ``grad_compress``,
+    ``zero``, ``overlap`` and ``bucket_mb``: the gradient-communication
+    stack (module docstring); ``overlap="bucketed"`` takes the explicit
+    pure-DP step.  ``step.comm``
+    holds its state.  Metrics are device scalars: ``loss`` and ``acc`` in
+    percent.
     """
+    mesh = _mesh_of(model, mesh)
     zero_mode = zero_lib.resolve_zero(zero)
     overlap_mode = overlap_lib.resolve_overlap(overlap)
     explicit = overlap_mode == "bucketed"
+    dp = mesh.size("data") if mesh is not None else 1
+    data_group = mesh.group("data") if mesh is not None else None
+    fsdp = getattr(model, "fsdp", None)
     if explicit:
         unsupported = [
             (f"accum_steps={accum_steps}", accum_steps > 1),
@@ -217,6 +312,16 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
                 "the explicit-collectives LM step (overlap/"
                 "explicit_collectives) supports the plain pure-DP step "
                 "only; got " + "; ".join(bad))
+        off_axes = {a: s for a, s in (mesh.shape.items() if mesh is not None else ())
+                    if a != "data" and s > 1}
+        if off_axes:
+            raise ValueError(
+                "the explicit-collectives LM step needs a pure data-parallel "
+                f"mesh; axes {off_axes} are > 1 besides 'data'")
+        if fsdp is not None:
+            raise ValueError(
+                "the explicit-collectives LM step keeps params replicated; "
+                f"got sharded param_specs {sorted(fsdp.dims)[:3]}...")
     gc_mode, gc_cast = qcomm.resolve_mode(grad_compress, None)
     if gc_mode != "none" and not explicit:
         warnings.warn(
@@ -227,19 +332,46 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
             UserWarning, stacklevel=2)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    ce_mode = "replicated"
     if fused_ce_chunks:
-        resolve_fused_ce_mode(fused_ce_mode, model.embed.num_embeddings)
-    params = [p for p in model.parameters() if p.requires_grad]
-    comm = None
-    if explicit or gc_mode in qcomm.QUANTIZED_MODES:
-        comm = GradSync(model, None, mode=gc_mode, cast_dtype=gc_cast, explicit=explicit,
+        ce_mode = resolve_fused_ce_mode(fused_ce_mode, model.vocab_size, mesh,
+                                        _embed_axis(model))
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    names = [n for n, _ in named]
+    params = [p for _, p in named]
+    # ZeRO over the data group; FSDP already shards the momentum (the JAX
+    # momentum specs compose over the FSDP specs and shard nothing more).
+    wus = zero_mode == "wus" and not explicit and fsdp is None and data_group is not None
+    quantized = gc_mode in qcomm.QUANTIZED_MODES
+    sharded = getattr(model, "tp", 1) > 1 or fsdp is not None
+    comm = zsync = None
+    if wus:
+        # ZeRO's rows on an f32 wire; a quantized mode emulates on the whole
+        # synced gradient first (JAX's blocks), as the GSPMD step does.
+        zsync = GradSync(model, data_group, mode="none", cast_dtype=None, explicit=False,
+                         zero="wus")
+        comm = _WholeEmulation(model, gc_mode, zero=zsync) if quantized else zsync
+    elif quantized and sharded:
+        comm = _WholeEmulation(model, gc_mode)
+    elif explicit or quantized:
+        comm = GradSync(model, data_group, mode=gc_mode, cast_dtype=gc_cast, explicit=explicit,
                         overlap=overlap_mode, bucket_mb=bucket_mb)
-    one = torch.ones((), device=params[0].device)
+    norm_weights = None
+    if wus and getattr(model, "tp", 1) > 1:
+        norm_weights = tp_lib.sq_sum_weights([leaf.name for leaf in zsync.leaves], model.specs,
+                                             mesh.index("model"))
+    count = torch.full((), float(dp), device=params[0].device)
+    hyper = optimizer.param_groups[0]
+
+    def loss_of(toks):
+        return lm_loss(model, toks, fused_ce_chunks, ce_mode, data_group)
 
     def step(tokens: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
+        if comm is not None:
+            comm.arm(accum_steps == 1)
         if accum_steps == 1:
-            loss, acc = lm_loss(model, tokens, fused_ce_chunks)
+            loss, acc = loss_of(tokens)
             loss.backward()
             loss = loss.detach()
         else:
@@ -249,58 +381,207 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
             micro = tokens.reshape(B // accum_steps, accum_steps, -1).transpose(0, 1)
             loss = acc = 0.0
             for mb in micro:
-                mb_loss, mb_acc = lm_loss(model, mb, fused_ce_chunks)
+                mb_loss, mb_acc = loss_of(mb)
                 mb_loss.backward()  # .grad holds the sum over microbatches
                 loss, acc = loss + mb_loss.detach(), acc + mb_acc
             inv = 1.0 / accum_steps
             for p in params:
                 p.grad.mul_(inv)
             loss, acc = loss * inv, acc * inv
-        if explicit:
-            # The JAX explicit step: the gradient synced over the data axis
-            # (one rank) and divided by its size, then clipped.
-            comm.sync_explicit(one)
-        grads = [p.grad for p in params]
-        gnorm = _l2_norm(grads) if (log_norms or clip_grad_norm > 0.0) else None
-        if clip_grad_norm > 0.0:
-            scale = torch.clamp(clip_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-            for g in grads:
-                g.mul_(scale)
-        if not explicit:
-            # The JAX GSPMD step: the emulation on the clipped gradient.
-            if comm is not None:
-                comm.emulate_grads()
-            elif gc_cast is not None:
-                for p in params:
-                    p.grad = p.grad.to(gc_cast).float()
+        loss = tp_lib.all_reduce_sum(loss, data_group) / dp
+        acc = tp_lib.all_reduce_sum(acc, data_group) / dp
         for group in optimizer.param_groups:
             group["lr"] = lr
-        optimizer.step()
+        want_norm = log_norms or clip_grad_norm > 0.0
+        if wus and not quantized:
+            # ZeRO: this rank's rows of the averaged gradient (a
+            # reduce-scatter), their norm over the mesh, the clip, then the
+            # cast, in the JAX GSPMD step's order.
+            rows = zsync.wus_rows(count)
+            gnorm = _rows_norm(zsync, rows, norm_weights, _world(mesh)) if want_norm else None
+            if clip_grad_norm > 0.0:
+                scale = torch.clamp(clip_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+                rows = [r * scale for r in rows]
+            if gc_cast is not None:
+                rows = [r.to(gc_cast).float() for r in rows]
+        else:
+            if explicit:
+                # The JAX explicit step: the local gradient sums synced over
+                # the data axis and divided by its size, then clipped.
+                comm.sync_explicit(count)
+            elif data_group is not None:
+                _sync_data([p for n, p in named if fsdp is None or not fsdp.sharded(n)],
+                           data_group)
+                for p in params:
+                    p.grad.div_(count)
+            grads = [p.grad for p in params]
+            gnorm = _mesh_norm(model, mesh, grads, names) if want_norm else None
+            if clip_grad_norm > 0.0:
+                scale = torch.clamp(clip_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+                for g in grads:
+                    g.mul_(scale)
+            if not explicit:
+                # The JAX GSPMD step: the emulation on the clipped gradient.
+                if quantized:
+                    comm.emulate_grads()
+                elif gc_cast is not None:
+                    for p in params:
+                        p.grad = p.grad.to(gc_cast).float()
+            rows = zsync.grad_rows() if wus else None
+        if wus:
+            # The momentum lives in the rows: the SGD on them, all-gather.
+            zsync.wus_update(rows, lr, hyper["momentum"], hyper["weight_decay"])
+        else:
+            optimizer.step()
         metrics = {"loss": loss, "acc": acc * 100.0}
         if log_norms:
             metrics["grad_norm"] = gnorm
             with torch.no_grad():
-                metrics["param_norm"] = _l2_norm(params)
+                metrics["param_norm"] = _mesh_norm(model, mesh, params, names)
         return metrics
 
     step.comm = comm
     return step
 
 
-def make_lm_eval_step(model):
-    """``step(tokens [B, L]) -> {"loss_sum", "correct", "count"}``: exact
-    token-weighted sums of the held-out loss and next-token hits, so the
+class _WholeEmulation:
+    """The GSPMD emulation of a sharded model (tensor parallelism, FSDP) and
+    of any model under ``--zero wus``: JAX fake-quantizes each global leaf
+    in blocks of its own flat JAX layout, so every rank gathers each
+    averaged gradient whole, runs the emulation on the whole leaves with a
+    whole residual (the same on every rank) and keeps its part.  The ``GradSync`` face the trainer and the
+    checkpoints use: ``emulate_grads``, ``checkpoint_trees``, ``load``.
+    ``zero``: under ``--zero wus``, the ``GradSync`` whose rows hold the
+    momentum (saved and loaded with the residual)."""
+
+    explicit = False
+    full_residual = True
+
+    def __init__(self, model, mode: str, block: int = qcomm.DEFAULT_BLOCK,
+                 zero: Optional[GradSync] = None):
+        from pytorch_distributed_tpu_torch.utils.convert import jax_leaves
+
+        self.zero, self.wus = zero, zero is not None
+        self.buckets = zero.buckets if zero is not None else ()
+        self.model, self.mode = model, mode
+        self.leaves = jax_leaves(model)
+        named = dict(model.named_parameters())
+        self.params = [named[leaf.name] for leaf in self.leaves]
+        self.shapes = [tuple(leaf.to_jax(torch.empty(self._full_shape(leaf.name, p),
+                                                     device="meta")).shape)
+                       for leaf, p in zip(self.leaves, self.params)]
+        self.lay = qcomm.PackedLayout([int(np.prod(s)) for s in self.shapes], 1, block)
+        self.residual = torch.zeros(self.lay.numel, device=self.params[0].device)
+
+    def _full_shape(self, name: str, p: torch.Tensor) -> Tuple[int, ...]:
+        shape = list(p.shape)
+        fsdp, split = self.model.fsdp, self.model.specs.get(name)
+        if fsdp is not None and fsdp.sharded(name):
+            shape[fsdp.dims[name]] *= fsdp.n
+        if split is not None:
+            shape[split.dim] = split.full
+        return tuple(shape)
+
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        fsdp = self.model.fsdp
+        if fsdp is not None and fsdp.sharded(name):
+            t = fsdp.gather({name: t})[name]
+        return tp_lib.gather_tensor(t, self.model.specs.get(name), self.model.tp_group)
+
+    def arm(self, on: bool) -> None:
+        pass
+
+    @torch.no_grad()
+    def emulate_grads(self) -> None:
+        whole = [leaf.to_jax(self._whole(leaf.name, p.grad))
+                 for leaf, p in zip(self.leaves, self.params)]
+        out, self.residual = qcomm.emulate(self.lay, self.lay.pack(whole, self.residual.device),
+                                           self.residual, self.mode)
+        model = self.model
+        for leaf, p, v in zip(self.leaves, self.params, self.lay.unpack(out, self.shapes)):
+            t = tp_lib.shard_tensor(leaf.from_jax(v), model.specs.get(leaf.name), model.tp_rank)
+            if model.fsdp is not None:
+                t = model.fsdp.shard({leaf.name: t})[leaf.name]
+            p.grad.copy_(t)
+
+    def checkpoint_trees(self) -> Dict[str, Optional[dict]]:
+        from pytorch_distributed_tpu_torch.utils.convert import tree_from_leaves
+
+        momentum = self.zero.checkpoint_trees()["momentum"] if self.zero is not None else None
+        return {"momentum": momentum, "residual": tree_from_leaves(
+            [leaf.path for leaf in self.leaves],
+            [v.detach().cpu().numpy().copy() for v in self.lay.unpack(self.residual,
+                                                                      self.shapes)])}
+
+    def load(self, momentum, residual) -> None:
+        """The whole residual of a checkpoint when its shapes are this
+        model's, else zeros (JAX resets error feedback on a mode switch);
+        the momentum into ``zero``'s rows."""
+        from pytorch_distributed_tpu_torch.utils.convert import tree_at
+
+        if self.zero is not None:
+            self.zero.load(momentum, None)
+        saved = None
+        if residual:
+            try:
+                saved = [np.asarray(tree_at(residual, leaf.path), np.float32)
+                         for leaf in self.leaves]
+            except (KeyError, TypeError):
+                saved = None
+            if saved is not None and [a.shape for a in saved] != self.shapes:
+                saved = None
+        self.residual = (torch.zeros_like(self.residual) if saved is None else
+                         self.lay.pack([torch.from_numpy(a) for a in saved],
+                                       self.residual.device))
+
+
+def _sync_data(params: List[torch.Tensor], group) -> None:
+    """Sum the ``.grad`` of ``params`` over the data group, in place, in one
+    flat f32 all-reduce."""
+    if group is None or not params:
+        return
+    summed = qcomm.sum_finish(qcomm.sum_start([p.grad for p in params], group),
+                              [p.shape for p in params])
+    for p, g in zip(params, summed):
+        p.grad.copy_(g)
+
+
+def _embed_axis(model) -> Optional[str]:
+    """The mesh axis the tied embedding's vocab rows are split over (its
+    ``embed`` spec's first entry): ``model`` under tensor parallelism,
+    ``data`` where FSDP shards that dimension, else None."""
+    if getattr(model, "tp", 1) > 1:
+        return "model"
+    fsdp = getattr(model, "fsdp", None)
+    if fsdp is not None and fsdp.dims.get("embed.weight") == 0:
+        return "data"
+    return None
+
+
+def make_lm_eval_step(model, mesh=None):
+    """``step(tokens) -> {"loss_sum", "correct", "count"}``: exact
+    token-weighted sums of the held-out loss and next-token hits over the
+    global batch (each rank's rows, summed over the data group), so the
     host aggregates them exactly."""
+    mesh = _mesh_of(model, mesh)
+    data_group = mesh.group("data") if mesh is not None else None
+    group = getattr(model, "tp_group", None)
 
     @torch.no_grad()
     def step(tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
         logits = model(tokens)
         flat = logits[:, :-1].reshape(-1, logits.shape[-1])
         targets = tokens[:, 1:].reshape(-1)
-        count = float(targets.numel())
-        correct = (flat.argmax(dim=-1) == targets).float().sum()
-        return {"loss_sum": cross_entropy(flat, targets) * count,
-                "correct": correct, "count": count}
+        if group is not None:
+            loss_sum = tp_lib.vocab_parallel_ce(flat, targets, model.vocab_lo, group).sum()
+            pred = tp_lib.vocab_parallel_argmax(flat, model.vocab_lo, model.vocab_size, group)
+        else:
+            loss_sum = cross_entropy(flat, targets) * float(targets.numel())
+            pred = flat.argmax(dim=-1)
+        sums = torch.stack([loss_sum, (pred == targets).float().sum(),
+                            torch.full((), float(targets.numel()), device=flat.device)])
+        loss_sum, correct, count = tp_lib.all_reduce_sum(sums, data_group).unbind(0)
+        return {"loss_sum": loss_sum, "correct": correct, "count": count}
 
     return step
 
@@ -337,8 +618,11 @@ class LMTrainer:
                  weight_decay: float = 1e-4, checkpoint_dir: Optional[str] = None,
                  save_steps: int = 0, resume: Optional[str] = None,
                  grad_compress: Optional[str] = None, zero: Optional[str] = None,
-                 overlap: str = "none", bucket_mb: float = overlap_lib.DEFAULT_BUCKET_MB):
+                 overlap: str = "none", bucket_mb: float = overlap_lib.DEFAULT_BUCKET_MB,
+                 mesh=None):
         self.model = model
+        self.mesh = _mesh_of(model, mesh)
+        self.is_primary = self.mesh is None or self.mesh.is_primary
         self.dataset = dataset
         self.batch_size = batch_size
         self.lr = lr
@@ -351,12 +635,14 @@ class LMTrainer:
                                           fused_ce_mode=fused_ce_mode,
                                           grad_compress=grad_compress,
                                           zero=zero_lib.resolve_zero(zero), overlap=overlap,
-                                          bucket_mb=bucket_mb)
+                                          bucket_mb=bucket_mb, mesh=self.mesh)
         self.comm = self.step_fn.comm
         self.eval_dataset = eval_dataset
         self.eval_every = eval_every
         self.eval_batches = eval_batches
-        self._eval_fn = make_lm_eval_step(model) if eval_dataset is not None else None
+        self._eval_fn = (make_lm_eval_step(model, self.mesh) if eval_dataset is not None
+                         else None)
+        self._span = None
         self.best_ppl = float("inf")
         self.eval_history: list = []  # (loss, ppl, acc%) per evaluate() call
         self.step_times: list = []
@@ -375,15 +661,74 @@ class LMTrainer:
 
     def _save_checkpoint(self, completed: int, is_best: bool = False) -> None:
         """The best perplexity rides in the ``best_acc1`` slot; the LM is
-        epochless, so step == global step restores the exact token stream."""
-        trees = self.comm.checkpoint_trees() if self.comm is not None else {}
+        epochless, so step == global step restores the exact token stream.
+        Every rank calls it (a sharded model's trees are gathered by
+        collectives); rank 0 writes."""
+        trees = self._checkpoint_trees()
+        if not self.is_primary:
+            return
         save_checkpoint(self.checkpoint_dir, self.model, self.optimizer, completed, 0,
                         "transformer_lm", self.best_ppl if self._eval_fn is not None else 0.0,
                         is_best=is_best, ft={"step": completed, "global_step": completed},
                         **trees)
 
+    def _checkpoint_trees(self) -> Dict[str, Optional[dict]]:
+        """The JAX-layout trees this run saves beyond the model's own: the
+        gradient stack's momentum and residual and, for a sharded model, the
+        whole parameters and momentum gathered from every rank."""
+        trees = self.comm.checkpoint_trees() if self.comm is not None else {}
+        model = self.model
+        if getattr(model, "tp", 1) == 1 and getattr(model, "fsdp", None) is None:
+            return trees
+        dev = model.device
+
+        def whole(local: Dict[str, torch.Tensor]) -> dict:
+            if model.fsdp is not None:
+                local = model.fsdp.gather(local)
+            return lm_params_to_jax(tp_lib.gather_state(local, model.specs, model.tp_group))
+
+        if trees.get("momentum") is not None:   # the ZeRO rows, gathered over data
+            trees["momentum"] = whole(lm_state_dict_from_jax(trees["momentum"], device=dev))
+        else:
+            trees["momentum"] = whole(momentum_state_dict(model, self.optimizer))
+        if (trees.get("residual") is not None and not self.comm.explicit
+                and not getattr(self.comm, "full_residual", False)):
+            trees["residual"] = whole(lm_state_dict_from_jax(trees["residual"], device=dev))
+        trees["params"] = whole(dict(model.state_dict()))
+        return trees
+
+    def _row_span(self) -> Tuple[int, int]:
+        """This rank's row range of the global batch: the contiguous slice of
+        its data index (the whole batch for every rank of a model group,
+        which shares it)."""
+        if self._span is None:
+            B = self.batch_size
+            dp = self.mesh.size("data") if self.mesh is not None else 1
+            if B % dp:
+                raise ValueError(
+                    "One of device_put args was given the sharding of NamedSharding(mesh="
+                    f"Mesh({', '.join(f'{a!r}: {n}' for a, n in self.mesh.shape.items())}, "
+                    f"axis_types=({', '.join(['Auto'] * len(self.mesh.axes))})), "
+                    "spec=PartitionSpec('data', None), memory_kind=device), which implies "
+                    "that the global size of its dimension 0 should be divisible by "
+                    f"{dp}, but it is equal to {B} (full shape: ({B}, "
+                    f"{self.dataset.seq_len}))")
+            d = self.mesh.index("data") if self.mesh is not None else 0
+            self._span = (d * B // dp, (d + 1) * B // dp)
+        return self._span
+
+    def _local_rows(self, global_batch: np.ndarray) -> np.ndarray:
+        """Slice an already-assembled global batch down to this rank's rows
+        (prefer ``_local_batch``, which never assembles foreign rows)."""
+        lo, hi = self._row_span()
+        return global_batch[lo:hi]
+
+    def _local_batch(self, ds, step: int) -> np.ndarray:
+        """Assemble only this rank's rows of logical global batch ``step``."""
+        return _wraparound_batch(ds, step, self.batch_size, rows=self._row_span())
+
     def _tokens(self, ds, step: int) -> torch.Tensor:
-        return torch.from_numpy(ds.batch(step, self.batch_size)).to(self.model.device)
+        return torch.from_numpy(self._local_batch(ds, step)).to(self.model.device)
 
     def evaluate(self) -> Tuple[float, float, float]:
         """Held-out ``(loss, perplexity, next-token acc%)`` over

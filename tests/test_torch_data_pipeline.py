@@ -12,11 +12,16 @@ against the JAX package's, on trees of small images written here with PIL.
   ``batch_mode`` (f32, u8_host, u8_wire, and a native-decode tree with a
   corrupt file) under thread workers, and under two spawned worker
   processes (the only test that spawns), padded tail and masks included.
+  A spawned worker skips the parent's main module unless the dataset
+  pickles a reference to it.
 - ``DeviceFeeder`` on a uint8 batch: within 1e-6 of the JAX feeder's
   on-device normalize (both f32; XLA may fold the constants differently).
 """
 
 import io
+import os
+import subprocess
+import sys
 import warnings
 
 import jax
@@ -242,6 +247,46 @@ def test_process_workers_match_jax(tree):
         pool = tl._pool
     tl.close()
     assert tl._pool is None
+
+
+_MAIN = r'''
+import os, sys
+if __name__ == "__mp_main__":
+    open(os.environ["MAIN_RAN"], "w").close()
+from pytorch_distributed_tpu_torch.data import DataLoader, SyntheticImageDataset
+
+
+class Local(SyntheticImageDataset):
+    pass
+
+
+if __name__ == "__main__":
+    kind = Local if os.environ["DATASET"] == "local" else SyntheticImageDataset
+    loader = DataLoader(kind(length=4, num_classes=2, image_size=8), 4, num_workers=1,
+                        worker_type="process")
+    (batch,) = list(loader)
+    loader.close()
+    print(batch["images"].shape)
+'''
+
+
+@pytest.mark.parametrize("dataset, how, runs_main", [("package", "-m", False),
+                                                      ("local", "file", True)])
+def test_spawned_workers_run_the_main_module_only_when_needed(tmp_path, dataset, how,
+                                                               runs_main):
+    """The workers of a script run with ``python -m`` (found by
+    ``__spec__``) or as a file (``__file__``) do not run it first, so they
+    import no torch, unless the dataset's class lives in that script."""
+    (tmp_path / "main_script.py").write_text(_MAIN)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, MAIN_RAN=str(tmp_path / "ran"), DATASET=dataset,
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = ["-m", "main_script"] if how == "-m" else [str(tmp_path / "main_script.py")]
+    out = subprocess.run([sys.executable, *cmd], cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["(4,", "8,", "8,", "3)"]
+    assert (tmp_path / "ran").exists() == runs_main
 
 
 def test_feeder_normalizes_uint8_as_the_jax_feeder():

@@ -242,7 +242,7 @@ def test_recipe_trains_on_cpu(capsys):
     assert np.isfinite(lm_pretrain.main(TINY + ["--no-eval"]))
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--sp", "2"], ["--remat", "--pp", "2"],
+@pytest.mark.parametrize("flag", [["--ep", "2"], ["--sp", "2"], ["--remat", "--pp", "2"],
                                   ["--nan-guard"],
                                   ["--metrics-jsonl", "m.jsonl"], ["--elastic"]])
 def test_unported_flags_exit_nonzero(flag):
