@@ -3,7 +3,8 @@
 their checkpoints, image training from an ImageFolder tree on disk, the
 data-parallel image recipes, the fused CE head, int8 weights,
 speculative decoding, the gradient-communication stack, the rest of the
-image zoo and LM training across ranks, on one NVIDIA H100 and check them.
+image zoo, LM training across ranks and the training metrics stream, on
+one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -207,8 +208,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     each with finite train losses, then its train step alone timed (median of 3
     synchronised steps; prints ms and images/s); ``multiprocessing_distributed
     -a mobilenet_v2`` (BatchNorm and dropout) at 2 gloo ranks of b64 on the
-    card against 1 rank of b128 over NCCL, f32, TF32 off, one step at lr 0.01, within
-    phase 16's ``WORLD_*`` limits; none of K1-K5 launches in the phase;
+    card against 1 rank of b128 over NCCL, f32, TF32 off, one step, within
+    phase 16's ``WORLD_*`` limits, while two controls (per-rank BatchNorm;
+    DDP's hook returning this rank's gradient unsummed) must each fall
+    outside one, and a chaos probe (1 rank, images x (1 + 1e-7), against
+    itself) prints what rounding-sized noise moves; none of K1-K5 launches
+    in the phase;
 22. LM training across ranks: ``recipes.lm_pretrain`` at the LM cell
     (bf16, 12 layers, B=4, L=4096, 3 steps) in a process of its own under
     ``PTD_TPU_*`` at world 1 (NCCL, the mesh's data group running every
@@ -225,7 +230,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     DP 2's); ``recipes.lm_generate --tp 2`` at the LM's width and depth
     (f32, two gloo ranks, dense prefill) against ``--tp 1``: the same
     greedy tokens unless the top-2 gap at the first difference is under
-    1e-3, printed by rank 0 alone.
+    1e-3, printed by rank 0 alone;
+23. the training metrics stream: ``recipes.tpu_native -a resnet50
+    --fused-convbn`` (b256, 224x224, bf16, synthetic) and
+    ``recipes.lm_pretrain`` at the LM cell (B=4, L=4096, bf16), without
+    and then with ``--metrics-jsonl --hb-dir --mfu --goodput
+    --step-attr`` (the image run also ``--telemetry-csv --profile-dir
+    --profile-steps 2:3``), 16 steps each: one record per step with finite
+    MFU in (0, 100] and HFU >= MFU against the card's 989 TFLOP/s, the
+    attribution identity
+    within 0.5% of each step, the image step's compute share >= 90%, one
+    heartbeat file at the last step, telemetry rows at the card's total
+    memory with peak >= in use > 0, a Chrome trace naming K4's and K5's
+    kernels and the ``train_step`` span, K4 33 and K5 13 times a step, K1-K3
+    once per layer per step; prints the median step with the flags against
+    without and the MFU readings.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
@@ -928,7 +947,8 @@ def data_phase(dev, card, arch="resnet50", batch=256, image_size=224, classes=10
 # Phase 16: the data-parallel recipes, each through its launcher contract.
 # A recipe runs in a fresh process: ``python3 chip_smoke.py --recipe-worker
 # NAME OUT [--tf32-off] [--time] [--layer-check] [--per-rank-bn]
-# [--local-k45-vectors] -- ARGS`` runs ``recipes.NAME.main(ARGS)``
+# [--local-k45-vectors] [--no-grad-sum] [--scale-images=F] -- ARGS`` runs
+# ``recipes.NAME.main(ARGS)``
 # with the launch counters zeroed just before and read just after, then
 # writes what the parent checks to OUT/result.json and the final weights
 # to OUT/state.pt.
@@ -959,11 +979,38 @@ def recipe_worker(argv) -> int:
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     if "--tf32-off" in flags:
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    # Controls of the world-invariance check, each a fault it must see.
+    # Controls of the world-invariance checks, each a fault they must see.
     if "--per-rank-bn" in flags:  # plain DDP: every BatchNorm over this rank's batch
-        from pytorch_distributed_tpu_torch.models import resnet
+        from pytorch_distributed_tpu_torch.models import layers, resnet
 
         resnet.ResNet.set_bn_group = lambda self, group: self
+        layers.ImageModel.set_bn_group = lambda self, group: self
+    if "--no-grad-sum" in flags:  # DDP's hook hands back this rank's gradient unsummed
+        from pytorch_distributed_tpu_torch.train import steps as steps_lib
+
+        def unsummed(group, bucket):
+            fut = torch.futures.Future()
+            fut.set_result(bucket.buffer())
+            return fut
+
+        steps_lib._sum_hook = unsummed
+    scale = next((float(f.split("=", 1)[1]) for f in flags if f.startswith("--scale-images=")),
+                 None)
+    if scale is not None:  # the chaos probe: every train step sees images x scale
+        from pytorch_distributed_tpu_torch.train import trainer as trainer_lib
+
+        make_step = trainer_lib.make_train_step
+
+        def scaled_step(*a, **kw):
+            inner = make_step(*a, **kw)
+
+            def step(batch, lr):
+                return inner({**batch, "images": batch["images"] * scale}, lr)
+
+            step.comm = inner.comm
+            return step
+
+        trainer_lib.make_train_step = scaled_step
     if "--local-k45-vectors" in flags:  # K4/K5's t, u from this rank's sums only
         from pytorch_distributed_tpu_torch.ops import fused_conv_bn
 
@@ -989,7 +1036,9 @@ def recipe_worker(argv) -> int:
            "step_times_ms": [t * 1e3 for t in trainer.step_times],
            "param_bytes": 4 * sum(p.numel() for p in trainer.model.parameters()),
            "n_params": len(list(trainer.model.parameters())),
-           "momentum_bytes": gradsync.momentum_bytes(trainer.optimizer, trainer.comm)}
+           "momentum_bytes": gradsync.momentum_bytes(trainer.optimizer, trainer.comm),
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                        if torch.cuda.is_available() else 0.0)}
     if ctx.process_index == 0:
         torch.save({k: v.detach().cpu() for k, v in trainer.model.state_dict().items()},
                    os.path.join(out, "state.pt"))
@@ -2217,55 +2266,95 @@ def zoo_representatives(dev, card, root, reps=ZOO_REPRESENTATIVES, steps=3, time
     return out
 
 
-def zoo_world_invariance(card, root, steps=1, batch=128, lr=0.01):
+# Phase 21's chaos probe: one rank against itself with every image scaled
+# by this factor, at the lr the check first ran at.
+ZOO_PROBE_SCALE = 1.0000001
+
+
+def zoo_world_invariance(card, root, steps=1, batch=128, lr=0.01, probe_lr=0.1):
     """``multiprocessing_distributed -a mobilenet_v2`` (BatchNorm and
     dropout) at 2 gloo ranks of ``batch // 2`` on the one card against 1
     rank of ``batch`` over NCCL, f32, TF32 off, ``steps`` steps at ``lr``:
-    within phase 16's ``WORLD_*`` limits (loss and weights).  MobileNetV2's
-    training-mode gradients at init are chaotic, so the ranks' other
-    summation order moves them far more than ResNet-50's: one step, whose
-    loss is a forward pass (by the second, images scaled by 1 + 1e-7 move
-    the loss by 4e-6 to 7.6e-5 relative on the CPU at 224 px, b32), at lr
-    0.01 (at 0.1 the card's sound run moved a weight by 6.4e-4, the limit
-    being 3.5e-4; on the CPU the first conv's gradient moved by ~1e-2)."""
-    args = ["-a", "mobilenet_v2", "--synthetic", "-b", str(batch), "--image-size", "224",
-            "--synthetic-length", str(steps * batch), "--epochs", "1", "--seed", "0", "-p",
-            "1", "-j", "4", "--precision", "fp32", "--lr", str(lr)]
-    outs = {1: os.path.join(root, "zoo_world1"), 2: os.path.join(root, "zoo_world2")}
-    procs = [_launch("multiprocessing_distributed", outs[1],
-                     args + ["--checkpoint-dir", os.path.join(outs[1], "ckpt")], ("--tf32-off",),
-                     {"PTD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}"})]
-    port = _free_port()
-    procs += [_launch("multiprocessing_distributed", outs[2],
-                      args + ["--checkpoint-dir", os.path.join(outs[2], "ckpt")],
-                      ("--tf32-off",), {"PTD_TPU_COORDINATOR": f"127.0.0.1:{port}",
-                                        "PTD_TPU_NUM_PROCESSES": "2",
-                                        "PTD_TPU_PROCESS_ID": str(r)})
-              for r in range(2)]
+    the sound run within phase 16's ``WORLD_*`` limits (loss and weights),
+    and each control outside at least one of them: per-rank BatchNorm, and
+    DDP's hook returning this rank's gradient unsummed.  Beside them the
+    chaos probe: 1 rank at ``probe_lr`` with the images scaled by
+    ``ZOO_PROBE_SCALE`` against the same rank unscaled, whose largest weight
+    difference is what rounding-sized perturbations alone move: at lr 0.1
+    it moved the first conv's weights by 8.05e-4, more than the 2-rank run
+    (6.37e-4) and past the 3.5e-4 limit (PERF.md §2), so the check steps at
+    lr 0.01, where both are ten times smaller.  All the processes share the
+    card at once."""
+    def args(rate):
+        return ["-a", "mobilenet_v2", "--synthetic", "-b", str(batch), "--image-size", "224",
+                "--synthetic-length", str(steps * batch), "--epochs", "1", "--seed", "0",
+                "-p", "1", "-j", "4", "--precision", "fp32", "--lr", str(rate)]
+
+    # tag -> (world, worker flags, lr)
+    runs = {"world 1": (1, (), lr), "sound": (2, (), lr),
+            "control: per-rank BatchNorm": (2, ("--per-rank-bn",), lr),
+            "control: no gradient sum": (2, ("--no-grad-sum",), lr),
+            "probe": (1, (f"--scale-images={ZOO_PROBE_SCALE}",), probe_lr)}
+    if probe_lr != lr:
+        runs["probe reference"] = (1, (), probe_lr)
+    outs, procs = {}, []
+    for i, (tag, (world, flags, rate)) in enumerate(runs.items()):
+        out = outs[tag] = os.path.join(root, f"zoo_world_{i}")
+        a = args(rate) + ["--checkpoint-dir", os.path.join(out, "ckpt")]
+        port = _free_port()
+        procs += [_launch("multiprocessing_distributed", out, a, ("--tf32-off", *flags),
+                          {"PTD_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                           **({"PTD_TPU_NUM_PROCESSES": "2", "PTD_TPU_PROCESS_ID": str(r)}
+                              if world == 2 else {})})
+                  for r in range(world)]
     t0 = time.perf_counter()
-    _wait(procs, "multiprocessing_distributed -a mobilenet_v2 (world 1 and world 2)")
-    res = {w: [] for w in outs}
-    for w, out in outs.items():
-        for r in range(w):
-            with open(os.path.join(out, f"result{r}.json")) as f:
-                res[w].append(json.load(f))
-    s1, s2 = (torch.load(os.path.join(outs[w], "state.pt")) for w in (1, 2))
-    r1, r2 = res[1][0], res[2][0]
-    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(r2["losses"], r1["losses"]))
-    worst, at = max(((s2[k].float() - v.float()).abs().max().item(), k)
-                    for k, v in s1.items())
-    within = loss_rel <= WORLD_LOSS_REL and worst <= WORLD_WEIGHT_ABS
-    print(f"[zoo] world invariance, mobilenet_v2 f32 TF32 off, lr {lr}, {steps} steps: 2 ranks x "
-          f"b{batch // 2} over {r2['backend']} vs 1 rank x b{batch} over {r1['backend']} "
-          f"({time.perf_counter() - t0} s): losses {r2['losses']} vs {r1['losses']} (max rel "
-          f"{loss_rel}, limit {WORLD_LOSS_REL}); rank losses equal "
-          f"{r2['losses'] == res[2][1]['losses']}; weights and statistics max abs diff "
-          f"{worst} at {at} (limit {WORLD_WEIGHT_ABS}); K4/K5 launches {r1['launches']} / "
-          f"{r2['launches']}; within the limits: {within}; card {card}")
-    if not (within and r1["backend"] == "nccl" and r2["backend"] == "gloo"
-            and r2["losses"] == res[2][1]["losses"]
-            and r1["launches"] == r2["launches"] == [0, 0]):
-        raise SystemExit("mobilenet_v2 at world 2 does not match world 1")
+    _wait(procs, "multiprocessing_distributed -a mobilenet_v2 (world 1, world 2, controls, "
+          "probe)")
+    wall = time.perf_counter() - t0
+    res, state = {}, {}
+    for tag, (world, _, _) in runs.items():
+        res[tag] = []
+        for r in range(world):
+            with open(os.path.join(outs[tag], f"result{r}.json")) as f:
+                res[tag].append(json.load(f))
+        state[tag] = torch.load(os.path.join(outs[tag], "state.pt"))
+
+    def against(tag, ref):
+        loss_rel = max(abs(x - y) / abs(y)
+                       for x, y in zip(res[tag][0]["losses"], res[ref][0]["losses"]))
+        worst, at = max(((state[tag][k].float() - v.float()).abs().max().item(), k)
+                        for k, v in state[ref].items())
+        return loss_rel, worst, at
+
+    failed = []
+    r1 = res["world 1"][0]
+    for tag in ("sound", "control: per-rank BatchNorm", "control: no gradient sum"):
+        loss_rel, worst, at = against(tag, "world 1")
+        r2 = res[tag]
+        within = loss_rel <= WORLD_LOSS_REL and worst <= WORLD_WEIGHT_ABS
+        print(f"[zoo] world invariance ({tag}), mobilenet_v2 f32 TF32 off, lr {lr}, {steps} "
+              f"steps: 2 ranks x b{batch // 2} over {r2[0]['backend']} vs 1 rank x b{batch} "
+              f"over {r1['backend']} (all {len(procs)} processes side by side: {wall} s): "
+              f"losses {r2[0]['losses']} vs {r1['losses']} (max rel {loss_rel}, limit "
+              f"{WORLD_LOSS_REL}); rank losses equal {r2[0]['losses'] == r2[1]['losses']}; "
+              f"weights and statistics max abs diff {worst} at {at} (limit "
+              f"{WORLD_WEIGHT_ABS}); K4/K5 launches {r1['launches']} / {r2[0]['launches']}; "
+              f"peak {[r['peak_gib'] for r in r2]} GiB; within the limits: {within}; "
+              f"card {card}")
+        if not (r1["backend"] == "nccl" and r2[0]["backend"] == "gloo"
+                and r1["launches"] == r2[0]["launches"] == r2[1]["launches"] == [0, 0]):
+            raise SystemExit(f"mobilenet_v2 ({tag}): backend or launches wrong")
+        if tag == "sound" and not (within and r2[0]["losses"] == r2[1]["losses"]):
+            failed.append("mobilenet_v2 at world 2 does not match world 1")
+        if tag != "sound" and within:
+            failed.append(f"the mobilenet_v2 world-invariance check cannot see its {tag}")
+    ref = "probe reference" if probe_lr != lr else "world 1"
+    loss_rel, worst, at = against("probe", ref)
+    print(f"[zoo] chaos probe, mobilenet_v2 f32 TF32 off, lr {probe_lr}, {steps} steps, 1 rank "
+          f"x b{batch}: images x {ZOO_PROBE_SCALE} vs x 1: losses max rel {loss_rel}; weights "
+          f"and statistics max abs diff {worst} at {at}; card {card}")
+    if failed:
+        raise SystemExit("; ".join(failed))
 
 
 def zoo_phase(dev, card):
@@ -2572,6 +2661,173 @@ def lm_mesh_phase(dev, card, cfg, lm_unfused_ms, TB=4, TL=4096, steps=3, gen_new
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
     return total
+
+
+# Phase 23: the training metrics stream (ROADMAP A12's first slice) through
+# both trainers at full width with every flag of the slice.  The attribution
+# identity's reconciliation error is fenced at the JAX package's 0.5% of the
+# step; the synthetic ResNet-50 step is device-bound (PERF.md: 202.03 ms busy
+# of 208.80), so its step-attribution compute share must reach 90%.
+OBS_RECON_FRAC = 0.005
+OBS_COMPUTE_SHARE = 90.0
+OBS_TRACE_KERNELS = ("dgrad1_mma_kernel", "wgrad1_mma_kernel", "dgrad3_mma_kernel",
+                     "wgrad3_mma_kernel")
+
+
+def _obs_run(what, fn, argv):
+    """``fn(argv)`` with its output captured; returns (trainer or value,
+    output, wall seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        got = fn(argv)
+    torch.cuda.synchronize()
+    return got, buf.getvalue(), time.perf_counter() - t0
+
+
+def _obs_records(what, d, trainer, steps, peak, card):
+    """The checks both runs share: one record per step, MFU fields, the peak,
+    the identity, one heartbeat file at the last step, the goodput line.
+    Returns (step records, attribution summary)."""
+    from pytorch_distributed_tpu_torch.obs import heartbeat, metrics, stepattr
+
+    recs = metrics.read_metrics(os.path.join(d, "m.jsonl"))
+    rows = [r for r in recs if "ft_event" not in r]
+    events = [r["ft_event"] for r in recs if "ft_event" in r]
+    bad = []
+    if [r["step"] for r in rows] != list(range(steps)) or events != ["stepattr_phases"]:
+        bad.append(f"records {[r.get('step') for r in rows]}, events {events}")
+    for r in rows:
+        if not (all(math.isfinite(r[k]) for k in ("mfu", "hfu", "model_tflops"))
+                and 0 < r["mfu"] <= 100 and r["hfu"] >= r["mfu"]):
+            bad.append(f"step {r['step']}: mfu {r['mfu']} hfu {r['hfu']}")
+        if r["attr_recon_err_ms"] > OBS_RECON_FRAC * r["step_time"] * 1e3:
+            bad.append(f"step {r['step']}: recon err {r['attr_recon_err_ms']} ms")
+    if trainer.ro.mfu.peak != peak:
+        bad.append(f"peak {trainer.ro.mfu.peak}, not {peak}")
+    beats = heartbeat.read_heartbeats(os.path.join(d, "hb"))
+    if len(os.listdir(os.path.join(d, "hb"))) != 1 or beats.get(0, {}).get("step") != steps - 1:
+        bad.append(f"heartbeats {beats}")
+    if trainer.ro.goodput.report().steps != steps:
+        bad.append("goodput")
+    summary = stepattr.summarize(recs)
+    parts = [tuple(r[f"attr_{c}_ms"] for c in ("compute", "data_wait", "host_sync", "other"))
+             for r in rows]
+    print(f"[obs] {what}: {steps} records; mfu {[r['mfu'] for r in rows]} %, hfu "
+          f"{[r['hfu'] for r in rows]} %, model TFLOP/s {[r['model_tflops'] for r in rows]} "
+          f"(peak {trainer.ro.mfu.peak / 1e12} TFLOP/s); attribution: "
+          f"{stepattr.format_summary_line(summary)}; per step (compute, data wait, host "
+          f"sync, other) ms {parts}; recon err max "
+          f"{summary['recon_err_ms_max']} ms; heartbeat {beats.get(0)}; "
+          f"{trainer.ro.goodput.format_summary()}; card {card}")
+    if bad:
+        raise SystemExit(f"phase 23 {what}: " + "; ".join(bad))
+    return rows, summary
+
+
+def obs_phase(dev, card, cfg, steps=16, TB=4, TL=4096):
+    """Phase 23: ``tpu_native -a resnet50 --fused-convbn`` (b256 224x224 bf16,
+    synthetic) and ``lm_pretrain`` at the LM's full width (L 4096, B 4,
+    bf16), ``steps`` steps each, first without the slice's flags, then with
+    ``--metrics-jsonl --hb-dir --mfu --goodput --step-attr`` (and, for the
+    image run, ``--telemetry-csv --profile-dir --profile-steps 2:3``), the
+    launch counters zeroed just before each flagged run and read just after.
+    Checks the records, MFU against the card's 989 TFLOP/s, the
+    attribution identity, the image step's compute share, heartbeats,
+    telemetry rows against the card's memory, the trace's kernels and span;
+    prints the median step with the flags against without.  Sixteen steps,
+    so that the attribution's p50 is not a step the profiler touched: its
+    start costs step 2 and its stop and export step 3 (as in the JAX
+    trainer, the window opens and closes at the top of a step), and the
+    first step warms up.  The image steps took 300-850 ms of device window
+    on an H100 80GB HBM3 at 700 W while the loader's threads still built
+    synthetic batches on the host and ~207 ms once they were done (the last
+    three; PERF.md §5), so both medians are printed.  Returns (K1, K2, K3, K4, K5) launches of
+    its runs."""
+    from pytorch_distributed_tpu_torch.obs import flops
+
+    peak = flops.device_peak_flops(dev)
+    if peak != 989e12:
+        raise SystemExit(f"device_peak_flops gave {peak} for {torch.cuda.get_device_name(dev)},"
+                         " not the H100's 989e12")
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    launched = [0] * 5
+    try:
+        image = ["-a", "resnet50", "--synthetic", "--fused-convbn", "-b", "256",
+                 "--image-size", "224", "--synthetic-length", str(256 * steps), "--epochs", "1",
+                 "--precision", "bf16", "--seed", "0", "-p", "100", "--device", "cuda"]
+        lm = ["--vocab", str(cfg["vocab_size"]), "--d-model", str(cfg["d_model"]),
+              "--n-heads", str(cfg["n_heads"]), "--n-layers", str(cfg["n_layers"]),
+              "--seq-len", str(TL), "-b", str(TB), "--steps", str(steps), "--precision",
+              "bf16", "--no-eval", "-p", "100", "--device", "cuda"]
+        medians = {}
+        for what, fn, base in (("image", tpu_native.run, image), ("lm", lm_pretrain.run, lm)):
+            for flagged in (False, True):
+                d = os.path.join(root, f"{what}_{int(flagged)}")
+                os.makedirs(d)
+                argv = list(base)
+                if what == "image":
+                    argv += ["--checkpoint-dir", os.path.join(d, "ck"), "--epoch-csv",
+                             os.path.join(d, "e.csv")]
+                if flagged:
+                    argv += ["--metrics-jsonl", os.path.join(d, "m.jsonl"), "--hb-dir",
+                             os.path.join(d, "hb"), "--mfu", "--goodput", "--step-attr"]
+                    if what == "image":
+                        argv += ["--telemetry-csv", os.path.join(d, "t.csv"), "--profile-dir",
+                                 os.path.join(d, "prof"), "--profile-steps", "2:3"]
+                for k in KERNEL_WRAPPERS:
+                    k.launches = 0
+                trainer, out, wall = _obs_run(what, fn, argv)
+                counts = [k.launches for k in KERNEL_WRAPPERS]
+                launched = [a + b for a, b in zip(launched, counts)]
+                medians[what, flagged] = (statistics.median(trainer.step_times[1:]) * 1e3,
+                                          statistics.median(trainer.step_times[-3:]) * 1e3)
+                want = ([0, 0, 0, 33 * steps, 13 * steps] if what == "image" else
+                        [cfg["n_layers"] * steps] * 3 + [0, 0])
+                if counts != want or len(trainer.losses) != steps or not all(
+                        math.isfinite(float(x)) for x in trainer.losses):
+                    raise SystemExit(f"phase 23 {what} (flags {flagged}): launches {counts}, "
+                                     f"expected {want}; losses {trainer.losses}")
+                print(f"[obs] {what} {'with' if flagged else 'without'} the flags: steps "
+                      f"{[t * 1e3 for t in trainer.step_times]} ms, launches K1-K5 {counts}, "
+                      f"run {wall} s")
+                if not flagged:
+                    del trainer
+                    torch.cuda.empty_cache()
+                    continue
+                if "=> goodput " not in out:
+                    raise SystemExit(f"phase 23 {what}: no goodput summary printed")
+                rows, summary = _obs_records(what, d, trainer, steps, peak, card)
+                if what == "image":
+                    share = summary["shares_pct"]["compute"]
+                    total = torch.cuda.get_device_properties(dev).total_memory
+                    with open(os.path.join(d, "t.csv")) as f:
+                        tele = [[float(x) for x in line.split(",")] for line in f]
+                    traces = os.listdir(os.path.join(d, "prof"))
+                    with open(os.path.join(d, "prof", traces[0])) as f:
+                        text = f.read()
+                    names = {n: n in text for n in OBS_TRACE_KERNELS + ('"train_step"',)}
+                    print(f"[obs] image: compute share of the step p50 {share} % (limit "
+                          f"{OBS_COMPUTE_SHARE}); {len(tele)} telemetry rows, first {tele[0]}, "
+                          f"last {tele[-1]} (card total {total}); trace {traces} "
+                          f"({len(text)} bytes) names {names}")
+                    if share < OBS_COMPUTE_SHARE:
+                        raise SystemExit(f"phase 23 image: compute share {share} %")
+                    if not tele or not all(r[2] == total and r[4] >= r[3] > 0 for r in tele):
+                        raise SystemExit(f"phase 23 image: telemetry rows {tele}")
+                    if len(traces) != 1 or not all(names.values()):
+                        raise SystemExit(f"phase 23 image: trace {traces}, names {names}")
+                del trainer
+                torch.cuda.empty_cache()
+        for what in ("image", "lm"):
+            (on, on_tail), (off, off_tail) = medians[what, True], medians[what, False]
+            print(f"[obs] {what}: median step (steps 2-{steps}) with the flags {on} ms vs "
+                  f"without {off} ms: {100 * (on - off) / off} %; of the last 3 steps (the "
+                  f"loader's threads done) {on_tail} vs {off_tail} ms: "
+                  f"{100 * (on_tail - off_tail) / off_tail} %; card {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launched
 
 
 def main() -> int:
@@ -3173,21 +3429,26 @@ def main() -> int:
     k1_mesh, k2_mesh, k3_mesh = lm_mesh_phase(dev, card, cfg, lm_unfused_ms)
     print(f"[time] phase 22 took {time.perf_counter() - t0} s")
 
+    # 23. the training metrics stream through both trainers
+    t0 = time.perf_counter()
+    k1_obs, k2_obs, k3_obs, k4_obs, k5_obs = obs_phase(dev, card, cfg)
+    print(f"[time] phase 23 took {time.perf_counter() - t0} s")
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
         source="pytorch_distributed_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="pytorch_distributed_tpu/ops/flash_attention.py:37",
         launches=(serve_launches + train_launches[0] + k1 + k1_gen + k1_ce + k1_int8 + k1_a9
-                  + k1_mesh),
+                  + k1_mesh + k1_obs),
         max_abs_err=path["err"],
         ms=path["ms"], plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
         bound_by=path["bound_by"], library_ms=path["library_ms"])]
     bpath = bwd["path"]
     for name, key, line, n in (("flash_attention_bwd_dq", "dq", 185,
-                                train_launches[1] + k2 + k2_ce + k2_a9 + k2_mesh),
+                                train_launches[1] + k2 + k2_ce + k2_a9 + k2_mesh + k2_obs),
                                ("flash_attention_bwd_dkv", "dkv", 214,
-                                train_launches[2] + k3 + k3_ce + k3_a9 + k3_mesh)):
+                                train_launches[2] + k3 + k3_ce + k3_a9 + k3_mesh + k3_obs)):
         kernels.append(dict(
             name=name, route="cuda",
             source="pytorch_distributed_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -3196,9 +3457,9 @@ def main() -> int:
             plain_ms=bpath["plain_ms"], bound_ms=bpath[key]["bound_ms"],
             bound_by=bpath[key]["bound_by"], library_ms=bpath["library_ms"]))
     for name, key, line, n in (("fused_dgrad_wgrad", "k4_path", 122,
-                                image_launches[0] + k4 + k4_data + k4_dp + k4_a9),
+                                image_launches[0] + k4 + k4_data + k4_dp + k4_a9 + k4_obs),
                                ("fused_dgrad_wgrad_3x3", "k5_path", 210,
-                                image_launches[1] + k5 + k5_data + k5_dp + k5_a9)):
+                                image_launches[1] + k5 + k5_data + k5_dp + k5_a9 + k5_obs)):
         kp = conv[key]
         kernels.append(dict(
             name=name, route="cuda",
@@ -3206,7 +3467,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-22 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-23 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

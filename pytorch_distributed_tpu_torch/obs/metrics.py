@@ -1,10 +1,9 @@
 """Structured per-step metrics: one JSONL record per step.
 
-A copy of ``_percentile`` and ``MetricsLogger`` from
-``pytorch_distributed_tpu/obs/metrics.py``, which import no JAX; the
-serving engine's SLO percentiles and ``serve_lm --metrics-jsonl`` use them.
-The rest of that package's ``obs/`` is not ported yet (ROADMAP.md item
-A12).
+A copy of ``pytorch_distributed_tpu/obs/metrics.py``, which imports no
+JAX: the serving engine's SLO percentiles, ``serve_lm --metrics-jsonl`` and
+both trainers' ``--metrics-jsonl`` use it, and ``read_metrics`` reads the
+records back.  ``MetricsLogger`` is the trainers' one observability hub:
 
 - ``log_step`` buffers a structured record — step index, wall time,
   step-time EMA and windowed p50/p95/max, items/s throughput, lr, and any
@@ -24,7 +23,6 @@ import json
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
-
 def _percentile(sorted_vals: Sequence[float], q: float) -> float:
     """Nearest-rank percentile over an already-sorted sequence."""
     if not sorted_vals:
@@ -32,6 +30,16 @@ def _percentile(sorted_vals: Sequence[float], q: float) -> float:
     i = min(len(sorted_vals) - 1, int(round(q * (len(sorted_vals) - 1))))
     return sorted_vals[i]
 
+
+def read_metrics(path: str) -> List[dict]:
+    """Parse a metrics JSONL file back into records (schema round-trip)."""
+    records = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                records.append(json.loads(line))
+    return records
 
 
 class MetricsLogger:

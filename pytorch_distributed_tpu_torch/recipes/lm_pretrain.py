@@ -46,8 +46,12 @@ stack of ``train/lm.py``.
 The flag surface is the JAX recipe's plus ``--device`` (default ``cuda``).
 Its argument checks run first, in its order (``--remat`` applies to the
 pipeline stages only, so without ``--pp`` it exits with the JAX message).
+``--metrics-jsonl``, ``--hb-dir`` / ``--hb-interval``, ``--mfu``,
+``--goodput`` and ``--step-attr`` are the metrics stream of
+``train/observe.py``, with the JAX recipe's help.
 Every flag of a layer not ported yet (sequence and expert parallelism,
-the pipeline and its remat, fault tolerance, observability) is parsed, and
+the pipeline and its remat, fault tolerance, the rest of observability) is
+parsed, and
 a value other than its default exits naming the ROADMAP item that will
 port it.  The JAX recipe's SIGTERM preemption guard is one of them: here
 SIGTERM ends the process.
@@ -75,7 +79,7 @@ from pytorch_distributed_tpu_torch.train.lm import (
 
 _PARALLEL = "A10 (model parallelism: --sp, --ep, --pp)"
 _FT = "A11 (fault tolerance: --nan-guard, --elastic, the preemption guard)"
-_OBS = "A12 (observability: metrics, heartbeats, ledgers, alerts)"
+_OBS = "A12 (observability: ledgers, recompile watch, flight recorder, live export, alerts)"
 # Flags parsed for the JAX recipe's surface but not ported, each with the
 # ROADMAP item (queue A) that will port it.
 NOT_PORTED = {
@@ -84,10 +88,9 @@ NOT_PORTED = {
     **dict.fromkeys(("preempt_signals", "nan_guard", "ft_rollback_k",
                      "ft_check_every", "ft_lr_backoff", "elastic", "min_ranks",
                      "rescale_lr"), _FT),
-    **dict.fromkeys(("metrics_jsonl", "hb_dir", "hb_interval_s", "mfu", "goodput",
-                     "watch_recompiles", "comm_ledger", "mem_ledger",
+    **dict.fromkeys(("watch_recompiles", "comm_ledger", "mem_ledger",
                      "lowering_cache", "flight_rec", "hang_timeout",
-                     "metrics_port", "alerts", "step_attr"), _OBS),
+                     "metrics_port", "alerts"), _OBS),
 }
 
 
@@ -210,13 +213,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "forces --vocab 256 and replaces the synthetic "
                         "dataset")
     p.add_argument("--metrics-jsonl", type=str, default=None,
-                   dest="metrics_jsonl", metavar="PATH", help="not ported yet")
+                   dest="metrics_jsonl", metavar="PATH",
+                   help="append one structured JSON record per train step "
+                        "(step-time EMA/p50/p95, tokens/s, loss, lr, "
+                        "grad/param norms) to this file; "
+                        "summarize with scripts/obs_report.py")
     p.add_argument("--hb-dir", type=str, default=None, dest="hb_dir",
-                   metavar="DIR", help="not ported yet")
+                   metavar="DIR",
+                   help="shared heartbeat directory: each mesh process "
+                        "appends {pid, step, t} beats; obs_report.py flags "
+                        "stragglers by step lag / beat age")
     p.add_argument("--hb-interval", type=float, default=5.0,
-                   dest="hb_interval_s", metavar="SEC", help="not ported yet")
-    p.add_argument("--mfu", action="store_true", help="not ported yet")
-    p.add_argument("--goodput", action="store_true", help="not ported yet")
+                   dest="hb_interval_s", metavar="SEC",
+                   help="minimum seconds between heartbeats (default 5)")
+    p.add_argument("--mfu", action="store_true",
+                   help="report per-step MFU/HFU in the metrics JSONL: the "
+                        "analytic LM FLOPs model (obs/flops.py — fused-CE "
+                        "accounted) over the cards' peak FLOPs")
+    p.add_argument("--goodput", action="store_true",
+                   help="track the goodput/badput ledger live (nan-skips, "
+                        "rollback discards, preemption gaps, recompiles, "
+                        "stalls) and print the summary at end of fit")
     p.add_argument("--watch-recompiles", action="store_true",
                    dest="watch_recompiles", help="not ported yet")
     p.add_argument("--comm-ledger", type=str, default=None, dest="comm_ledger",
@@ -234,7 +251,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--alerts", type=str, default=None, dest="alerts",
                    metavar="RULES", help="not ported yet")
     p.add_argument("--step-attr", action="store_true", dest="step_attr",
-                   help="not ported yet")
+                   help="exact per-step wall-time attribution "
+                        "(obs/stepattr.py): stamp attr_* fields — compute "
+                        "/ exposed_comm / host_sync / data_wait / other, "
+                        "summing to step_time exactly — into every "
+                        "metrics record (the step ends in "
+                        "torch.cuda.synchronize() on a card)")
     p.add_argument("--eval-every", type=int, default=0,
                    help="run held-out eval (loss/ppl) every N steps; "
                         "0 = end-of-run only")
@@ -385,7 +407,10 @@ def _run(args, ctx) -> LMTrainer:
                             checkpoint_dir=args.checkpoint_dir,
                             save_steps=args.save_steps, resume=args.resume,
                             grad_compress=args.grad_compress, zero=args.zero,
-                            overlap=args.overlap, bucket_mb=args.bucket_mb, mesh=mesh)
+                            overlap=args.overlap, bucket_mb=args.bucket_mb, mesh=mesh,
+                            metrics_jsonl=args.metrics_jsonl, hb_dir=args.hb_dir,
+                            hb_interval_s=args.hb_interval_s, mfu=args.mfu,
+                            goodput=args.goodput, step_attr=args.step_attr)
     except NotImplementedError as e:  # an orbax checkpoint directory
         raise SystemExit(str(e)) from e
     trainer.ctx = ctx

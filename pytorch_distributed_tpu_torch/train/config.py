@@ -7,7 +7,12 @@ plus ``--device`` (default ``cuda``).
 Every flag is parsed.  ``check_ported`` exits naming the ROADMAP item that
 will port a flag whose value differs from its default and whose layer is
 not ported yet: fault tolerance beyond the in-step ``--nan-guard`` gate and
-the checkpoints (A11) and observability beyond the epoch CSV (A12).  The
+the checkpoints (A11) and observability beyond the metrics stream (A12:
+the ledgers, the recompile watch, the flight recorder, live export and
+alerts).  The metrics stream is ported: ``--metrics-jsonl``, ``--hb-dir``
+/ ``--hb-interval``, ``--mfu``, ``--goodput``, ``--step-attr``,
+``--telemetry-csv`` and ``--profile-dir`` / ``--profile-epochs`` /
+``--profile-steps``, with the JAX package's help.  The
 gradient-communication flags (``--grad-compress``, ``--zero``,
 ``--overlap``, ``--bucket-mb``) are ported with the JAX package's help.
 ``--dist-file`` is accepted and unused, as in the JAX package (the
@@ -28,17 +33,14 @@ from pytorch_distributed_tpu_torch import models
 from pytorch_distributed_tpu_torch.train.checkpoint import ORBAX_MESSAGE
 
 _FT = "A11 (fault tolerance: rollback policy, --elastic, the preemption guard)"
-_OBS = "A12 (observability: metrics, heartbeats, profiles, ledgers, alerts)"
+_OBS = "A12 (observability: ledgers, recompile watch, flight recorder, live export, alerts)"
 
 # dest -> the ROADMAP item that will port it, for flags not ported yet.
 NOT_PORTED = {
     **dict.fromkeys(("ft_rollback_k", "ft_check_every", "ft_lr_backoff",
                      "preempt_signals", "elastic", "min_ranks", "rescale_lr"), _FT),
-    **dict.fromkeys(("profile_dir", "profile_epochs", "profile_steps", "telemetry_csv",
-                     "metrics_jsonl", "hb_dir", "hb_interval_s", "mfu", "goodput",
-                     "watch_recompiles", "comm_ledger", "mem_ledger", "lowering_cache",
-                     "flight_rec", "hang_timeout", "metrics_port", "alerts",
-                     "step_attr"), _OBS),
+    **dict.fromkeys(("watch_recompiles", "comm_ledger", "mem_ledger", "lowering_cache",
+                     "flight_rec", "hang_timeout", "metrics_port", "alerts"), _OBS),
 }
 
 
@@ -228,18 +230,52 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
         dest="rescale_lr", help=_NOT_PORTED_HELP)
     add("--epoch-csv", default=d.epoch_csv, type=str,
         help="append [timestamp, epoch_seconds] rows to this CSV")
-    for flag, dest in (("--profile-dir", "profile_dir"), ("--profile-epochs", "profile_epochs"),
-                       ("--profile-steps", "profile_steps"), ("--metrics-jsonl", "metrics_jsonl"),
-                       ("--hb-dir", "hb_dir"), ("--comm-ledger", "comm_ledger"),
-                       ("--mem-ledger", "mem_ledger"), ("--lowering-cache", "lowering_cache"),
-                       ("--flight-rec", "flight_rec"), ("--alerts", "alerts"),
-                       ("--telemetry-csv", "telemetry_csv")):
-        add(flag, default=getattr(d, dest), type=str, dest=dest, help=_NOT_PORTED_HELP)
+    add("--profile-dir", default=d.profile_dir, type=str,
+        help="write a torch.profiler Chrome trace (CPU and CUDA activity) of the "
+        "first trained epoch of this run to this directory "
+        "(narrow the window with --profile-epochs/--profile-steps)")
+    add("--profile-epochs", default=d.profile_epochs, type=str, dest="profile_epochs",
+        metavar="E[:F]", help="epoch window to trace under --profile-dir "
+        "('2' or '2:4'); default: the first trained epoch")
+    add("--profile-steps", default=d.profile_steps, type=str, dest="profile_steps",
+        metavar="I[:J]", help="in-epoch step window narrowing the trace to steady "
+        "state ('10' or '10:20'); default: whole epoch")
+    add("--metrics-jsonl", default=d.metrics_jsonl, type=str, dest="metrics_jsonl",
+        metavar="PATH", help="append one structured JSON record per train step "
+        "(wall time, step-time EMA/p50/p95/max, throughput, "
+        "loss, lr, grad/param norms) to this file; "
+        "summarize with scripts/obs_report.py")
+    add("--hb-dir", default=d.hb_dir, type=str, dest="hb_dir", metavar="DIR",
+        help="shared heartbeat directory: each process "
+        "appends {pid, step, t} beats; scripts/obs_report.py "
+        "flags stragglers by step lag / beat age")
     add("--hb-interval", default=d.hb_interval_s, type=float, dest="hb_interval_s",
-        metavar="SEC", help=_NOT_PORTED_HELP)
-    for flag, dest in (("--mfu", "mfu"), ("--goodput", "goodput"),
-                       ("--watch-recompiles", "watch_recompiles"), ("--step-attr", "step_attr")):
-        add(flag, action="store_true", dest=dest, help=_NOT_PORTED_HELP)
+        metavar="SEC", help="minimum seconds between heartbeats (default 5)")
+    add("--mfu", action="store_true",
+        help="report per-step MFU/HFU in the metrics JSONL: the "
+        "analytic FLOPs model for the arch (obs/flops.py) over the "
+        "card's peak; supported for the ResNet and ViT families")
+    add("--goodput", action="store_true",
+        help="track the goodput/badput ledger live (nan-skips, "
+        "rollback discards, preemption gaps, recompiles, "
+        "stalls) and print the summary at end of fit; the "
+        "post-hoc equivalent is scripts/obs_report.py over "
+        "--metrics-jsonl")
+    add("--step-attr", action="store_true", default=d.step_attr, dest="step_attr",
+        help="exact per-step wall-time attribution "
+        "(obs/stepattr.py): stamp attr_* fields — compute / "
+        "exposed_comm / host_sync / data_wait / other, summing "
+        "to step_time exactly — into every metrics record (the "
+        "step ends in torch.cuda.synchronize() on a card)")
+    add("--telemetry-csv", default=d.telemetry_csv, type=str,
+        help="sample device memory stats to this CSV every 500ms "
+        "during training (statistics.sh-in-process)")
+    for flag, dest in (("--comm-ledger", "comm_ledger"), ("--mem-ledger", "mem_ledger"),
+                       ("--lowering-cache", "lowering_cache"), ("--flight-rec", "flight_rec"),
+                       ("--alerts", "alerts")):
+        add(flag, default=getattr(d, dest), type=str, dest=dest, help=_NOT_PORTED_HELP)
+    add("--watch-recompiles", action="store_true", dest="watch_recompiles",
+        help=_NOT_PORTED_HELP)
     add("--hang-timeout", default=d.hang_timeout, type=float, dest="hang_timeout",
         metavar="SEC", help=_NOT_PORTED_HELP)
     add("--metrics-port", default=d.metrics_port, type=int, dest="metrics_port",

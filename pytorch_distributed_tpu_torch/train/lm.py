@@ -37,9 +37,15 @@ residual stacked per rank) and clipped after; ``zero="wus"`` keeps the
 momentum in chunks over the data group (GSPMD's weight-update sharding;
 FSDP already shards it).  The residual rides in checkpoints.
 
+The metrics stream (``train/observe.py``): ``metrics_jsonl`` (a record
+per step with the step's norms), ``hb_dir`` / ``hb_interval_s``, ``mfu``
+(``lm_step_cost_for`` with the fused-CE tax, over the mesh's ranks),
+``goodput`` and ``step_attr``, with the JAX ``LMTrainer``'s names and
+meanings; each step runs inside an ``lm_step`` span.
+
 Not ported yet (ROADMAP.md queue A): sequence, expert and pipeline
-parallelism, the observability and fault-tolerance layers, elastic
-membership and the background feeder thread.
+parallelism, the fault-tolerance layer, the observability layer beyond the
+metrics stream, elastic membership and the background feeder thread.
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pytorch_distributed_tpu_torch.obs.flops import lm_step_cost_for
+from pytorch_distributed_tpu_torch.obs.trace import scope
 from pytorch_distributed_tpu_torch.ops import qcomm
 from pytorch_distributed_tpu_torch.ops.fused_ce import (
     fused_ce_sums,
@@ -64,6 +72,7 @@ from pytorch_distributed_tpu_torch.parallel import zero as zero_lib
 from pytorch_distributed_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from pytorch_distributed_tpu_torch.train.gradsync import GradSync
 from pytorch_distributed_tpu_torch.train.meters import StepMeters
+from pytorch_distributed_tpu_torch.train.observe import TrainObs
 from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.utils.convert import (
     lm_params_to_jax,
@@ -364,7 +373,8 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
     hyper = optimizer.param_groups[0]
 
     def loss_of(toks):
-        return lm_loss(model, toks, fused_ce_chunks, ce_mode, data_group)
+        with scope("lm_forward"):
+            return lm_loss(model, toks, fused_ce_chunks, ce_mode, data_group)
 
     def step(tokens: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
@@ -397,29 +407,34 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
             # ZeRO: this rank's rows of the averaged gradient (a
             # reduce-scatter), their norm over the mesh, the clip, then the
             # cast, in the JAX GSPMD step's order.
-            rows = zsync.wus_rows(count)
-            gnorm = _rows_norm(zsync, rows, norm_weights, _world(mesh)) if want_norm else None
-            if clip_grad_norm > 0.0:
-                scale = torch.clamp(clip_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-                rows = [r * scale for r in rows]
+            with scope("grad_sync"):
+                rows = zsync.wus_rows(count)
+            with scope("grad_clip"):
+                gnorm = (_rows_norm(zsync, rows, norm_weights, _world(mesh)) if want_norm
+                         else None)
+                if clip_grad_norm > 0.0:
+                    scale = torch.clamp(clip_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+                    rows = [r * scale for r in rows]
             if gc_cast is not None:
                 rows = [r.to(gc_cast).float() for r in rows]
         else:
-            if explicit:
-                # The JAX explicit step: the local gradient sums synced over
-                # the data axis and divided by its size, then clipped.
-                comm.sync_explicit(count)
-            elif data_group is not None:
-                _sync_data([p for n, p in named if fsdp is None or not fsdp.sharded(n)],
-                           data_group)
-                for p in params:
-                    p.grad.div_(count)
+            with scope("grad_sync"):
+                if explicit:
+                    # The JAX explicit step: the local gradient sums synced over
+                    # the data axis and divided by its size, then clipped.
+                    comm.sync_explicit(count)
+                elif data_group is not None:
+                    _sync_data([p for n, p in named if fsdp is None or not fsdp.sharded(n)],
+                               data_group)
+                    for p in params:
+                        p.grad.div_(count)
             grads = [p.grad for p in params]
-            gnorm = _mesh_norm(model, mesh, grads, names) if want_norm else None
-            if clip_grad_norm > 0.0:
-                scale = torch.clamp(clip_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-                for g in grads:
-                    g.mul_(scale)
+            with scope("grad_clip"):
+                gnorm = _mesh_norm(model, mesh, grads, names) if want_norm else None
+                if clip_grad_norm > 0.0:
+                    scale = torch.clamp(clip_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+                    for g in grads:
+                        g.mul_(scale)
             if not explicit:
                 # The JAX GSPMD step: the emulation on the clipped gradient.
                 if quantized:
@@ -428,11 +443,12 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
                     for p in params:
                         p.grad = p.grad.to(gc_cast).float()
             rows = zsync.grad_rows() if wus else None
-        if wus:
-            # The momentum lives in the rows: the SGD on them, all-gather.
-            zsync.wus_update(rows, lr, hyper["momentum"], hyper["weight_decay"])
-        else:
-            optimizer.step()
+        with scope("optimizer"):
+            if wus:
+                # The momentum lives in the rows: the SGD on them, all-gather.
+                zsync.wus_update(rows, lr, hyper["momentum"], hyper["weight_decay"])
+            else:
+                optimizer.step()
         metrics = {"loss": loss, "acc": acc * 100.0}
         if log_norms:
             metrics["grad_norm"] = gnorm
@@ -603,6 +619,10 @@ class LMTrainer:
     train step (the gradient-communication stack); its residual is saved
     and restored with the checkpoints.
 
+    ``metrics_jsonl``, ``hb_dir``, ``hb_interval_s``, ``mfu``, ``goodput``
+    and ``step_attr``: the metrics stream (``train/observe.py``), as the
+    JAX ``LMTrainer`` takes them; ``obs`` is its ``MetricsLogger``.
+
     ``checkpoint_dir``: checkpoint every ``save_steps`` steps (0: only at the
     end of ``fit``) there.  ``resume``: a checkpoint file to restore the
     weights, the momentum and the step from; ``fit`` continues at
@@ -619,7 +639,9 @@ class LMTrainer:
                  save_steps: int = 0, resume: Optional[str] = None,
                  grad_compress: Optional[str] = None, zero: Optional[str] = None,
                  overlap: str = "none", bucket_mb: float = overlap_lib.DEFAULT_BUCKET_MB,
-                 mesh=None):
+                 mesh=None, metrics_jsonl: Optional[str] = None, hb_dir: Optional[str] = None,
+                 hb_interval_s: float = 5.0, mfu: bool = False, goodput: bool = False,
+                 step_attr: bool = False):
         self.model = model
         self.mesh = _mesh_of(model, mesh)
         self.is_primary = self.mesh is None or self.mesh.is_primary
@@ -631,12 +653,23 @@ class LMTrainer:
         self.step_fn = make_lm_train_step(model, self.optimizer,
                                           clip_grad_norm=clip_grad_norm,
                                           accum_steps=accum_steps,
+                                          log_norms=bool(metrics_jsonl),
                                           fused_ce_chunks=fused_ce_chunks,
                                           fused_ce_mode=fused_ce_mode,
                                           grad_compress=grad_compress,
                                           zero=zero_lib.resolve_zero(zero), overlap=overlap,
                                           bucket_mb=bucket_mb, mesh=self.mesh)
         self.comm = self.step_fn.comm
+        mesh_ = self.mesh
+        self.ro = TrainObs(
+            model.device, mesh_.rank if mesh_ is not None else 0,
+            int(np.prod(mesh_.sizes)) if mesh_ is not None else 1,
+            metrics_jsonl=metrics_jsonl, hb_dir=hb_dir, hb_interval_s=hb_interval_s,
+            hb_world=mesh_.size("data") if mesh_ is not None else 1, mfu=mfu,
+            goodput=goodput, step_attr=step_attr,
+            cost=lambda: lm_step_cost_for(model, batch_size, dataset.seq_len,
+                                          fused_ce_chunks=fused_ce_chunks))
+        self.obs = self.ro.obs
         self.eval_dataset = eval_dataset
         self.eval_every = eval_every
         self.eval_batches = eval_batches
@@ -750,7 +783,8 @@ class LMTrainer:
 
     def fit(self, steps: int, print_freq: int = 10) -> float:
         """Train up to step ``steps`` (from the resumed step, else 0);
-        returns the last step's loss."""
+        returns the last step's loss.  The metrics stream closes at the
+        end of the steps (before the final eval), as in the JAX trainer."""
         meters = StepMeters(
             steps,
             [("loss", "Loss", ":.4e"), ("acc", "Acc@1", ":6.2f")],
@@ -758,25 +792,36 @@ class LMTrainer:
         )
         final_ppl = None  # ppl from an interval eval on the very last step
         completed = start = min(self._start_step, steps)
+        tokens_per_step = self.batch_size * self.dataset.seq_len
+        ro = self.ro
         meters.restart_clock()
-        for i in range(start, steps):
-            tokens = self._tokens(self.dataset, i)
-            lr = self.lr_schedule(i) if self.lr_schedule is not None else self.lr
-            metrics = self.step_fn(tokens, lr)
-            self.step_times.append(meters.update(metrics, self.batch_size))
-            self.losses.append(metrics["loss"])
-            meters.maybe_display(i, print_freq)
-            completed = i + 1
-            if self.checkpoint_dir and self.save_steps > 0 and completed % self.save_steps == 0:
-                self._save_checkpoint(completed)
-                meters.restart_clock()  # exclude checkpoint I/O from the meter
-            if (self._eval_fn is not None and self.eval_every > 0
-                    and (i + 1) % self.eval_every == 0):
-                _, final_ppl, _ = self.evaluate()
-                self.best_ppl = min(self.best_ppl, final_ppl)
-                meters.restart_clock()  # eval must not pollute the meter
-            else:
-                final_ppl = None
+        try:
+            for i in range(start, steps):
+                with ro.data_wait():
+                    tokens = self._tokens(self.dataset, i)
+                lr = self.lr_schedule(i) if self.lr_schedule is not None else self.lr
+                with scope("lm_step"), ro.device_window():
+                    metrics = self.step_fn(tokens, lr)
+                with ro.host_sync():
+                    dt = meters.update(metrics, self.batch_size)
+                self.step_times.append(dt)
+                self.losses.append(metrics["loss"])
+                ro.log_step(i, dt, tokens_per_step, lr, dict(metrics))
+                meters.maybe_display(i, print_freq)
+                completed = i + 1
+                if (self.checkpoint_dir and self.save_steps > 0
+                        and completed % self.save_steps == 0):
+                    self._save_checkpoint(completed)
+                    meters.restart_clock()  # exclude checkpoint I/O from the meter
+                if (self._eval_fn is not None and self.eval_every > 0
+                        and (i + 1) % self.eval_every == 0):
+                    _, final_ppl, _ = self.evaluate()
+                    self.best_ppl = min(self.best_ppl, final_ppl)
+                    meters.restart_clock()  # eval must not pollute the meter
+                else:
+                    final_ppl = None
+        finally:
+            ro.close(completed - 1)
         is_best = False
         if self._eval_fn is not None:
             if final_ppl is None:  # the last step did not land on an eval

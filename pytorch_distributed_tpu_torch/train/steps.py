@@ -69,6 +69,7 @@ from torch.nn.parallel import DistributedDataParallel
 
 from pytorch_distributed_tpu_torch.models.layers import (DropoutKey, dropout_layers,
                                                           set_dropout_key)
+from pytorch_distributed_tpu_torch.obs.trace import scope
 from pytorch_distributed_tpu_torch.ops import qcomm
 from pytorch_distributed_tpu_torch.ops.loss import cross_entropy
 from pytorch_distributed_tpu_torch.ops.metrics import topk_correct
@@ -105,15 +106,18 @@ def _l2_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 def forward_and_sums(model, batch: Batch):
     """``(loss_sum, c1, c5, count)``: weighted sums over the batch's padding
-    mask, in the model's current mode."""
-    logits = model(batch["images"])
-    w = batch["weights"].float()
-    labels = batch["labels"]
-    count = w.sum()
-    loss_sum = cross_entropy(logits, labels, weights=w) * count
-    with torch.no_grad():
-        c1 = (topk_correct(logits, labels, 1) * w).sum()
-        c5 = (topk_correct(logits, labels, 5) * w).sum()
+    mask, in the model's current mode (the JAX step's ``forward`` and
+    ``loss_and_metrics`` spans)."""
+    with scope("forward"):
+        logits = model(batch["images"])
+    with scope("loss_and_metrics"):
+        w = batch["weights"].float()
+        labels = batch["labels"]
+        count = w.sum()
+        loss_sum = cross_entropy(logits, labels, weights=w) * count
+        with torch.no_grad():
+            c1 = (topk_correct(logits, labels, 1) * w).sum()
+            c5 = (topk_correct(logits, labels, 5) * w).sum()
     return loss_sum, c1, c5, count
 
 
@@ -235,46 +239,48 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, accum_steps: int = 
             loss_sum = loss_sum + mb_loss.detach()
             c1, c5, count = c1 + mb_c1, c5 + mb_c5, count + mb_count
         step.count += 1
-        if group is not None:
-            sums = torch.stack([loss_sum, c1, c5, count]).float()
-            dist.all_reduce(sums, group=group)
-            loss_sum, c1, c5, count = sums
-        want_norm = log_norms or guard_nonfinite
-        gnorm = None
-        if not explicit_collectives:
-            count = count.clamp_min(1.0)
-        if wus:
-            # The JAX local_step's reduce-scatter, chunked SGD and gather
-            # (GSPMD: the same semantics, the count clamped).
-            gnorm = comm.wus_step(count, lr, hyper["momentum"], hyper["weight_decay"],
-                                  want_norm)
-        elif explicit_collectives:
-            # The JAX local_step: the local weighted sums on the wire, the
-            # global count divides them in f32 (no clamp, as there).
-            comm.sync_explicit(count)
-        else:
-            for p in params:
-                p.grad.div_(count)
-                if cast_dtype is not None:
-                    p.grad = p.grad.to(cast_dtype).float()
-            if comm is not None:
-                comm.emulate_grads()
-        if want_norm and gnorm is None:
-            gnorm = _l2_norm(p.grad for p in params)
+        with scope("grad_sync"):
+            if group is not None:
+                sums = torch.stack([loss_sum, c1, c5, count]).float()
+                dist.all_reduce(sums, group=group)
+                loss_sum, c1, c5, count = sums
+            want_norm = log_norms or guard_nonfinite
+            gnorm = None
+            if not explicit_collectives:
+                count = count.clamp_min(1.0)
+            if wus:
+                # The JAX local_step's reduce-scatter, chunked SGD and gather
+                # (GSPMD: the same semantics, the count clamped).
+                gnorm = comm.wus_step(count, lr, hyper["momentum"], hyper["weight_decay"],
+                                      want_norm)
+            elif explicit_collectives:
+                # The JAX local_step: the local weighted sums on the wire, the
+                # global count divides them in f32 (no clamp, as there).
+                comm.sync_explicit(count)
+            else:
+                for p in params:
+                    p.grad.div_(count)
+                    if cast_dtype is not None:
+                        p.grad = p.grad.to(cast_dtype).float()
+                if comm is not None:
+                    comm.emulate_grads()
+            if want_norm and gnorm is None:
+                gnorm = _l2_norm(p.grad for p in params)
         metrics = {"loss": loss_sum / count, "acc1": c1 * 100.0 / count,
                    "acc5": c5 * 100.0 / count}
-        if not wus:
-            for pg in optimizer.param_groups:
-                pg["lr"] = lr
-            optimizer.step()
-        if explicit_collectives and group is not None and stats:
-            # BN running statistics: the ranks' EMAs averaged (JAX pmean).
-            world = dist.get_world_size(group)
-            with torch.no_grad():
-                summed = qcomm.sum_finish(qcomm.sum_start(stats, group),
-                                          [b_.shape for b_ in stats])
-                for b_, avg in zip(stats, summed):
-                    b_.copy_(avg / world)
+        with scope("optimizer"):
+            if not wus:
+                for pg in optimizer.param_groups:
+                    pg["lr"] = lr
+                optimizer.step()
+            if explicit_collectives and group is not None and stats:
+                # BN running statistics: the ranks' EMAs averaged (JAX pmean).
+                world = dist.get_world_size(group)
+                with torch.no_grad():
+                    summed = qcomm.sum_finish(qcomm.sum_start(stats, group),
+                                              [b_.shape for b_ in stats])
+                    for b_, avg in zip(stats, summed):
+                        b_.copy_(avg / world)
         if guard_nonfinite:
             bad = ~(torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm))
             with torch.no_grad():

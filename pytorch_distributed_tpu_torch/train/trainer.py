@@ -33,10 +33,21 @@ whose ``GradSync`` holds this rank's error-feedback residual and, under
 the JAX layout (every rank takes part, rank 0 writes), and a deferred
 delta gather is applied before every eval and checkpoint.
 
+The metrics stream (``train/observe.py``), wired as in the JAX trainer:
+one ``MetricsLogger`` hub with the epoch CSV as its epoch sink, a record per
+step under ``--metrics-jsonl`` (with the step's gradient and parameter
+norms), ``--hb-dir`` beats per process, ``--mfu`` from the arch's analytic
+cost over the global batch and the world, ``--goodput`` (its summary at the
+end of ``fit``), ``--step-attr`` windows (``data_wait`` around the batch,
+``device`` around the step and ``torch.cuda.synchronize()``, ``host_sync``
+around the meters and the record), the ``--telemetry-csv`` sampler as a
+sink of the hub, and ``--profile-dir`` traces windowed per epoch and step
+(``--profile-epochs``, ``--profile-steps``).
+
 Not ported yet, each exiting from ``train/config.py`` with its ROADMAP item:
 the divergence rollback policy, elastic membership and the preemption guard
-(A11), and the observability layer (A12).  ``--nan-guard`` is ported as the
-in-step gate.
+(A11), and the observability layer beyond the metrics stream (A12).
+``--nan-guard`` is ported as the in-step gate.
 """
 
 from __future__ import annotations
@@ -65,14 +76,18 @@ from pytorch_distributed_tpu_torch.data.transforms import (
     train_transform,
     train_transform_u8,
 )
+from pytorch_distributed_tpu_torch.obs.flops import image_step_cost
+from pytorch_distributed_tpu_torch.obs.trace import ProfileWindow, scope
 from pytorch_distributed_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from pytorch_distributed_tpu_torch.train.config import Config
 from pytorch_distributed_tpu_torch.train.lr import cosine_lr, step_decay_lr
 from pytorch_distributed_tpu_torch.train.meters import AverageMeter, ProgressMeter, StepMeters
+from pytorch_distributed_tpu_torch.train.observe import TrainObs
 from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.train.steps import make_eval_step, make_train_step
 from pytorch_distributed_tpu_torch.parallel import DistContext, device_for
 from pytorch_distributed_tpu_torch.utils.csvlog import EpochCSVLogger
+from pytorch_distributed_tpu_torch.utils.telemetry import TelemetrySampler
 
 
 class Trainer:
@@ -126,6 +141,7 @@ class Trainer:
         group = self.ctx.group
         self.train_step = make_train_step(self.model, self.optimizer,
                                           accum_steps=cfg.accum_steps,
+                                          log_norms=bool(cfg.metrics_jsonl),
                                           guard_nonfinite=cfg.nan_guard, group=group,
                                           explicit_collectives=explicit_collectives,
                                           grad_compress=cfg.grad_compress,
@@ -136,6 +152,14 @@ class Trainer:
         self.eval_step = make_eval_step(self.model, group)
         self.feeder = DeviceFeeder(self.device)
         self.csv = EpochCSVLogger(cfg.epoch_csv if self.primary else None)
+        self.ro = TrainObs(self.device, self.ctx.process_index, self.ctx.process_count,
+                           metrics_jsonl=cfg.metrics_jsonl, hb_dir=cfg.hb_dir,
+                           hb_interval_s=cfg.hb_interval_s, mfu=cfg.mfu, goodput=cfg.goodput,
+                           step_attr=cfg.step_attr,
+                           cost=lambda: image_step_cost(cfg.arch, cfg.batch_size,
+                                                        cfg.image_size, cfg.num_classes))
+        self.obs = self.ro.obs     # the hub: the epoch CSV is its epoch sink
+        self.obs.register(self.csv)
         self.step_times: list = []
         self.losses: list = []
         self.eval_history: list = []
@@ -277,10 +301,12 @@ class Trainer:
                          "'cosine'")
 
     def train_epoch(self, epoch: int, start_step: int = 0,
-                    stop_after: Optional[int] = None) -> int:
+                    stop_after: Optional[int] = None,
+                    profiler: Optional[ProfileWindow] = None) -> int:
         """Steps ``start_step`` .. the end of ``epoch`` (or until
         ``stop_after`` steps of it are complete), checkpointing every
-        ``--save-steps``; returns the number of steps of the epoch complete."""
+        ``--save-steps``; returns the number of steps of the epoch complete.
+        ``profiler`` (``fit``'s) opens and closes its step window."""
         lr = self.epoch_lr(epoch)
         meters = StepMeters(len(self.train_loader),
                             [("loss", "Loss", ":.4e"), ("acc1", "Acc@1", ":6.2f"),
@@ -293,10 +319,21 @@ class Trainer:
             return completed
         meters.restart_clock()
         batches = self.feeder(self.train_loader.iter_batches(start_step))
-        for i, batch in enumerate(batches, start_step):
-            metrics = self.train_step(batch, lr)
-            self.step_times.append(meters.update(metrics, self.cfg.batch_size))
+        ro, n = self.ro, self.cfg.batch_size
+        for i in range(start_step, epoch_len):
+            if profiler is not None:
+                profiler.step_begin(epoch, i)
+            with ro.data_wait():
+                batch = next(batches, None)
+            if batch is None:
+                break
+            with scope("train_step"), ro.device_window():
+                metrics = self.train_step(batch, lr)
+            with ro.host_sync():
+                dt = meters.update(metrics, n)
+            self.step_times.append(dt)
             self.losses.append(metrics["loss"])
+            ro.log_step(self.global_step, dt, n, lr, dict(metrics), {"epoch": epoch})
             if self.primary:
                 meters.maybe_display(i, self.cfg.print_freq)
             self.global_step += 1
@@ -345,16 +382,32 @@ class Trainer:
     def fit(self) -> float:
         """Train ``--start-epoch`` .. ``--epochs`` (the first from the resumed
         step), validating and checkpointing after each epoch; returns the
-        best top-1 (or only validates under ``--evaluate``)."""
+        best top-1 (or only validates under ``--evaluate``).  Drives the
+        profiler window, the telemetry sampler and, at the end, the last
+        heartbeat and the goodput summary."""
         cfg = self.cfg
         if cfg.evaluate:
             return self.validate()
-        for epoch in range(cfg.start_epoch, cfg.epochs):
-            self.csv.epoch_start()
-            self.train_epoch(epoch, self._resume_step if epoch == cfg.start_epoch else 0)
-            acc1 = self.validate()
-            self.log(f"Epoch {epoch} took {self.csv.epoch_end():.1f}s")
-            is_best = acc1 > self.best_acc1
-            self.best_acc1 = max(acc1, self.best_acc1)
-            self.save(epoch, is_best=is_best)
+        if cfg.telemetry_csv:
+            # Registered on the hub, which stops it at the end.
+            self.obs.register(TelemetrySampler(cfg.telemetry_csv, device=self.device))
+        profiler = ProfileWindow(cfg.profile_dir, epochs=cfg.profile_epochs,
+                                 steps=cfg.profile_steps, start_epoch=cfg.start_epoch,
+                                 device=self.device)
+        try:
+            for epoch in range(cfg.start_epoch, cfg.epochs):
+                self.obs.epoch_start()
+                profiler.epoch_begin(epoch)
+                self.train_epoch(epoch, self._resume_step if epoch == cfg.start_epoch else 0,
+                                 profiler=profiler)
+                if profiler.epoch_end():
+                    self.log(f"=> wrote profiler trace to '{cfg.profile_dir}'")
+                acc1 = self.validate()
+                self.log(f"Epoch {epoch} took {self.obs.epoch_end():.1f}s")
+                is_best = acc1 > self.best_acc1
+                self.best_acc1 = max(acc1, self.best_acc1)
+                self.save(epoch, is_best=is_best)
+        finally:
+            profiler.epoch_end()
+            self.ro.close(self.global_step - 1)
         return self.best_acc1

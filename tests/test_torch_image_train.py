@@ -227,13 +227,14 @@ def test_recipe_trains_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,reason", [
-    (["--min-ranks", "2"], "ROADMAP.md item A11"), (["--mfu"], "ROADMAP.md item A12"),
+    (["--min-ranks", "2"], "ROADMAP.md item A11"), (["--flight-rec", "fr"], "ROADMAP.md item A12"),
     (["--rescale-lr", "linear"], "ROADMAP.md item A11"), (["--elastic"], "ROADMAP.md item A11"),
     (["--ckpt-backend", "orbax"], "orbax.checkpoint imports JAX"),
-    (["--profile-dir", "p"], "ROADMAP.md item A12"),
+    (["--hang-timeout", "5"], "ROADMAP.md item A12"),
     (["--ft-rollback-k", "5"], "ROADMAP.md item A11"),
-    (["--metrics-jsonl", "m.jsonl"], "ROADMAP.md item A12"),
-    (["--hb-dir", "hb"], "ROADMAP.md item A12"), (["--goodput"], "ROADMAP.md item A12")])
+    (["--alerts", "default"], "ROADMAP.md item A12"),
+    (["--watch-recompiles"], "ROADMAP.md item A12"),
+    (["--comm-ledger", "c.json"], "ROADMAP.md item A12")])
 def test_unported_flags_exit_naming_their_item(flag, reason):
     with pytest.raises(SystemExit) as exc:
         tpu_native.main(TINY_ARGS + flag)
