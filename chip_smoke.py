@@ -3,8 +3,8 @@
 their checkpoints, image training from an ImageFolder tree on disk, the
 data-parallel image recipes, the fused CE head, int8 weights,
 speculative decoding, the gradient-communication stack, the rest of the
-image zoo, LM training across ranks and the training metrics stream, on
-one NVIDIA H100 and check them.
+image zoo, LM training across ranks, the training metrics stream and the
+run's death paths and live plane, on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -244,7 +244,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     memory with peak >= in use > 0, a Chrome trace naming K4's and K5's
     kernels and the ``train_step`` span, K4 33 and K5 13 times a step, K1-K3
     once per layer per step; prints the median step with the flags against
-    without and the MFU readings.
+    without and the MFU readings;
+24. the death paths and the live plane: (a) ``recipes.lm_pretrain`` at the
+    LM cell and (b) ``recipes.tpu_native -a resnet50 --fused-convbn`` (b256,
+    224x224, bf16), 16 steps each, with ``--metrics-jsonl --flight-rec
+    --hang-timeout 30 --metrics-port P --alerts default`` and the default
+    SIGTERM guard, the hub draining every record and a thread scraping
+    ``/metrics`` and ``/healthz`` every 0.5 s: at least 2 scrapes with
+    ``ptd_up 1`` and a rising ``ptd_step``, every scraped loss the record's
+    (at the exposition's 6 digits), ``/healthz`` 200 once a record arrived,
+    no alert, no watchdog firing, no dump, K1-K3 12 a step in (a), K4 33 and
+    K5 13 in (b); prints the median step against phase 23's without flags.
+    (c) the JAX hang story at two gloo ranks sharing the card (DP 2, the LM
+    width at 2 layers, bf16, B=4, L=4096): rank 1 stalls 4 s before its
+    step-3 collective and SIGTERMs itself; rank 0's watchdog (1 s) dumps
+    ``hang`` inside step 3, rank 1 dumps ``signal:15`` one collective
+    behind, its watchdog (300 s) silent; the agreement stops both at step 4
+    with a checkpoint there; rank 0's records hold the ``hang`` event and
+    the ``hang`` rule's alert; ``tools/postmortem.py`` over the dumps and
+    heartbeats blames rank 1; K1-K3 once per layer per step on each rank.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
@@ -263,6 +281,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -302,7 +321,7 @@ from pytorch_distributed_tpu_torch.train.checkpoint import (
 )
 from pytorch_distributed_tpu_torch.train import gradsync
 from pytorch_distributed_tpu_torch.train.config import parse_config
-from pytorch_distributed_tpu_torch.train.lm import lm_loss
+from pytorch_distributed_tpu_torch.train.lm import SyntheticTokenDataset, lm_loss
 from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.train.steps import make_train_step
 from pytorch_distributed_tpu_torch.train.trainer import Trainer
@@ -1486,7 +1505,6 @@ def fused_ce_phase(dev, card, cfg, steps=8, TB=4, TL=4096, chunks=8):
     """Phase 17: ``lm_pretrain --fused-ce`` at the LM cell's full width.
     Returns the (K1, K2, K3) launches of its training runs and the unfused
     bf16 step's median ms."""
-    from pytorch_distributed_tpu_torch.train.lm import SyntheticTokenDataset
 
     # f32, TF32 off: the fused loss against the unfused head on the same
     # weights and tokens.  They differ in summation order only (the head's
@@ -2674,13 +2692,13 @@ OBS_TRACE_KERNELS = ("dgrad1_mma_kernel", "wgrad1_mma_kernel", "dgrad3_mma_kerne
                      "wgrad3_mma_kernel")
 
 
-def _obs_run(what, fn, argv):
-    """``fn(argv)`` with its output captured; returns (trainer or value,
-    output, wall seconds)."""
+def _obs_run(what, fn, argv, **kw):
+    """``fn(argv, **kw)`` with its output captured; returns (trainer or
+    value, output, wall seconds)."""
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        got = fn(argv)
+        got = fn(argv, **kw)
     torch.cuda.synchronize()
     return got, buf.getvalue(), time.perf_counter() - t0
 
@@ -2731,7 +2749,9 @@ def obs_phase(dev, card, cfg, steps=16, TB=4, TL=4096):
     bf16), ``steps`` steps each, first without the slice's flags, then with
     ``--metrics-jsonl --hb-dir --mfu --goodput --step-attr`` (and, for the
     image run, ``--telemetry-csv --profile-dir --profile-steps 2:3``), the
-    launch counters zeroed just before each flagged run and read just after.
+    launch counters zeroed just before each flagged run and read just after
+    (the LM's token batches come from the trainer's feeder thread, its
+    default ``prefetch=2``).
     Checks the records, MFU against the card's 989 TFLOP/s, the
     attribution identity, the image step's compute share, heartbeats,
     telemetry rows against the card's memory, the trace's kernels and span;
@@ -2742,8 +2762,9 @@ def obs_phase(dev, card, cfg, steps=16, TB=4, TL=4096):
     first step warms up.  The image steps took 300-850 ms of device window
     on an H100 80GB HBM3 at 700 W while the loader's threads still built
     synthetic batches on the host and ~207 ms once they were done (the last
-    three; PERF.md §5), so both medians are printed.  Returns (K1, K2, K3, K4, K5) launches of
-    its runs."""
+    three; PERF.md §5), so both medians are printed.  Returns the (K1, K2, K3, K4, K5)
+    launches of its runs and, per run, the (median, last-3 median) step without the flags
+    in ms."""
     from pytorch_distributed_tpu_torch.obs import flops
 
     peak = flops.device_peak_flops(dev)
@@ -2819,12 +2840,335 @@ def obs_phase(dev, card, cfg, steps=16, TB=4, TL=4096):
                         raise SystemExit(f"phase 23 image: trace {traces}, names {names}")
                 del trainer
                 torch.cuda.empty_cache()
+        # The host's share of an LM step: one token batch (TB x TL) built
+        # anew on the host, as the feeder thread builds each step's.
+        ds = SyntheticTokenDataset(64, TL, cfg["vocab_size"], seed=1)
+        builds = []
+        for s in range(5):
+            t0 = time.perf_counter()
+            ds.batch(s, TB)
+            builds.append((time.perf_counter() - t0) * 1e3)
+        print(f"[obs] lm: one host token batch ({TB} x {TL}) built in {builds} ms, median "
+              f"{statistics.median(builds)} ms; card {card}")
         for what in ("image", "lm"):
             (on, on_tail), (off, off_tail) = medians[what, True], medians[what, False]
             print(f"[obs] {what}: median step (steps 2-{steps}) with the flags {on} ms vs "
                   f"without {off} ms: {100 * (on - off) / off} %; of the last 3 steps (the "
                   f"loader's threads done) {on_tail} vs {off_tail} ms: "
-                  f"{100 * (on_tail - off_tail) / off_tail} %; card {card}")
+                  f"{100 * (on_tail - off_tail) / off_tail} %"
+                  + ("; the LM's token batches now come from the trainer's feeder thread "
+                     "(prefetch 2); built in the loop they read +11.6 % (H100 80GB HBM3, "
+                     "700.00 W; PERF.md §6)" if what == "lm" else "") + f"; card {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launched, {what: medians[what, False] for what in ("image", "lm")}
+
+
+# Phase 24: the run's death paths and live plane (ROADMAP A12's second slice,
+# with A11's preemption guard and chaos hooks).  (c) is the JAX package's
+# two-process hang story (tests/test_flightrec.py's LateRank): rank 1 stalls
+# before its step-3 collective, then SIGTERMs itself; rank 0 blocks inside
+# the step-3 gradient all-reduce (gloo blocks the host there) and its
+# watchdog dumps; the guard's agreement stops both at the next poll.
+LIVE_SCRAPE_S = 0.5
+FT_STALL_STEP, FT_STALL_S, FT_BATCH, FT_PRINT_FREQ = 3, 4.0, 4, 2
+FT_HANG_FLOOR_S = 1.0   # rank 0's watchdog floor after step 0
+FT_STOP_STEP = 4   # the first agreement poll (every FT_PRINT_FREQ steps) after the signal
+
+
+class _Scraper(threading.Thread):
+    """Reads ``/metrics`` and ``/healthz`` of one exporter every
+    ``LIVE_SCRAPE_S`` while a run goes; ``reads`` holds (samples, healthz
+    status) of each answered scrape (none before the exporter binds or
+    after it stops)."""
+
+    def __init__(self, port: int):
+        super().__init__(daemon=True)
+        self.base = f"http://127.0.0.1:{port}"
+        self.done = threading.Event()
+        self.reads: list = []
+
+    def run(self):
+        import urllib.error
+        import urllib.request
+
+        from pytorch_distributed_tpu_torch.obs.export import parse_prometheus
+
+        while not self.done.is_set():
+            try:
+                with urllib.request.urlopen(self.base + "/metrics", timeout=2.0) as r:
+                    samples = parse_prometheus(r.read().decode())
+                try:
+                    with urllib.request.urlopen(self.base + "/healthz", timeout=2.0) as r:
+                        health = r.status
+                except urllib.error.HTTPError as e:
+                    health = e.code
+                self.reads.append((samples, health))
+            except OSError:
+                pass  # not serving yet, or stopped
+            self.done.wait(LIVE_SCRAPE_S)
+
+    def stop(self) -> list:
+        self.done.set()
+        self.join(timeout=10)
+        return self.reads
+
+
+def _flush_each_record(trainer):
+    """The run's own hub drains every record as it is logged, so a 16-step
+    run's exporter serves each step live (the default cadence, 50, would
+    hold them all until the end; the JAX package's chaos drills set
+    ``obs.flush_every = 1`` on their trainers for the same reason).  Each
+    flush converts the step's device scalars: one synchronize a step."""
+    trainer.ro.obs.flush_every = 1
+
+
+def _live_checks(what, d, trainer, reads, steps):
+    """(a)/(b)'s misses: scrapes, their losses against the records, healthz,
+    alerts, the watchdog, dumps."""
+    from pytorch_distributed_tpu_torch.obs import metrics
+    from pytorch_distributed_tpu_torch.obs.export import sample_value
+    from pytorch_distributed_tpu_torch.obs.flightrec import find_dumps
+
+    recs = metrics.read_metrics(os.path.join(d, "m.jsonl"))
+    loss_at = {r["step"]: r["loss"] for r in recs if "ft_event" not in r}
+    up = [(sample_value(smp, "ptd_up", rank=0), sample_value(smp, "ptd_step", rank=0), h)
+          for smp, h in reads]
+    live = [(st, h) for u, st, h in up if u == 1.0 and st is not None]
+    seen = [st for st, _ in live]
+    bad = []
+    if len(live) < 2 or seen != sorted(seen) or seen[-1] <= seen[0]:
+        bad.append(f"scrapes with ptd_up 1 and a step: {seen}")
+    for smp, _ in reads:
+        st = sample_value(smp, "ptd_step", rank=0)
+        if st is None:
+            continue
+        got = sample_value(smp, "ptd_metric", rank=0, field="loss")
+        # The exposition prints 6 significant digits (%g, the JAX rendering).
+        if got != float(f"{loss_at.get(int(st), float('nan')):g}"):
+            bad.append(f"step {st}: scraped loss {got}, record {loss_at.get(int(st))}")
+        if any(n == "ptd_alert_firing" for n, _, _ in smp):
+            bad.append(f"step {st}: an alert is firing")
+    if not live or any(h != 200 for _, h in live):
+        bad.append(f"healthz after a record: {[h for _, h in live]}")
+    events = [r["ft_event"] for r in recs if "ft_event" in r]
+    hangs = trainer.ro.hang_wd.hangs
+    dumps = find_dumps(os.path.join(d, "fr"))
+    if "alert" in events or trainer.ro.alerts.history or hangs or dumps:
+        bad.append(f"events {events}, alerts {trainer.ro.alerts.history}, hangs {hangs}, "
+                   f"dumps {dumps}")
+    if sorted(loss_at) != list(range(steps)):
+        bad.append(f"records of steps {sorted(loss_at)}")
+    last = ([(st, sample_value(smp, "ptd_metric", rank=0, field="loss"))
+             for smp, _ in reads if (st := sample_value(smp, "ptd_step", rank=0)) is not None]
+            or [(None, None)])[-1]
+    print(f"[live] {what}: {len(reads)} scrapes, steps seen live {seen}, healthz "
+          f"{[h for _, _, h in up]}, last scraped step {last[0]} loss {last[1]} (its record "
+          f"{loss_at.get(int(last[0])) if last[0] is not None else None}), events {events}, "
+          f"watchdog hangs {hangs}, dumps {dumps}")
+    if bad:
+        raise SystemExit(f"phase 24 {what}: " + "; ".join(bad))
+
+
+def ft_worker(argv) -> int:
+    """``--ft-worker OUT L STEPS CFG_JSON``: one of phase 24(c)'s two gloo
+    ranks sharing the card (DP 2, the LM width at 2 layers, bf16, B=4,
+    L=4096).  Builds its ``LMTrainer`` with a ``PreemptionGuard``, the
+    flight recorder, heartbeats (interval 0), metrics JSONL, ``--alerts
+    default`` and a checkpoint dir; rank 1's ``on_step`` stalls
+    ``FT_STALL_S`` at ``FT_STALL_STEP`` and then SIGTERMs itself; the
+    watchdog floors are 300 s, rank 0's ``FT_HANG_FLOOR_S`` from step 1 on.
+    Writes ``OUT/ft<rank>.json``."""
+    import signal
+
+    from pytorch_distributed_tpu_torch.ft.chaos import ChaosInjector
+    from pytorch_distributed_tpu_torch.parallel import initialize, shutdown
+    from pytorch_distributed_tpu_torch.parallel.mesh import MeshSpec, build_mesh, device_for
+    from pytorch_distributed_tpu_torch.train import lm
+    from pytorch_distributed_tpu_torch.utils.preempt import PreemptionGuard
+
+    out, TL, steps = argv[0], int(argv[1]), int(argv[2])
+    cfg = _lm_mesh_cfg(json.loads(argv[3]))
+    ctx = initialize(device="cuda")
+    dev = device_for(ctx, "cuda")
+    rank = ctx.process_index
+
+    class LateRank(ChaosInjector):
+        # Before the step's flight window: the stalled rank's frontier stays
+        # one collective behind its peer's.  Rank 0's floor drops to
+        # FT_HANG_FLOOR_S once step 0 is done: step 0 holds the start-up
+        # and waits for the later rank's first collective, and must not
+        # fire it.
+        def on_step(self, trainer, step):
+            if rank == 0 and step == 1:
+                trainer.ro.hang_wd.timeout = FT_HANG_FLOOR_S
+            if rank == 1 and step == FT_STALL_STEP:
+                time.sleep(FT_STALL_S)
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    mesh = build_mesh(MeshSpec(("data",), (2,)), ctx)
+    model = TransformerLM(**cfg, dtype=torch.bfloat16, param_dtype=torch.float32, device=dev,
+                          mesh=mesh)
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    guard = PreemptionGuard().install()
+    for k in KERNEL_WRAPPERS[:3]:
+        k.launches = 0
+    try:
+        t = lm.LMTrainer(model, lm.SyntheticTokenDataset(64, TL, cfg["vocab_size"], seed=0),
+                         FT_BATCH, lr=1e-2, mesh=mesh, preempt=guard, chaos=LateRank(),
+                         flight_rec=out, hb_dir=out, hb_interval_s=0.0,
+                         metrics_jsonl=os.path.join(out, f"m{rank}.jsonl"), alerts="default",
+                         checkpoint_dir=os.path.join(out, "ck"), hang_timeout=300.0)
+        t.fit(steps, print_freq=FT_PRINT_FREQ)
+        torch.cuda.synchronize()
+    finally:
+        guard.uninstall()
+    res = {"backend": ctx.backend, "steps": len(t.losses), "hangs": t.ro.hang_wd.hangs,
+           "launches": [k.launches for k in KERNEL_WRAPPERS[:3]],
+           "losses": [float(x) for x in t.losses],
+           "checkpoints": [step for _, kind, step, _ in t.ro.flight._ring
+                           if kind == "checkpoint"]}
+    with open(os.path.join(out, f"ft{rank}.json"), "w") as f:
+        json.dump(res, f)
+    shutdown(ctx)
+    return 0
+
+
+def _hang_story(card, cfg, TL=4096, steps=12):
+    """Phase 24(c); returns the (K1, K2, K3) launches of both ranks."""
+    from pytorch_distributed_tpu_torch.obs import metrics
+    from pytorch_distributed_tpu_torch.obs.flightrec import find_dumps
+    from pytorch_distributed_tpu_torch.tools import postmortem
+    from pytorch_distributed_tpu_torch.train.checkpoint import read_payload
+
+    here = os.path.abspath(__file__)
+    out = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    try:
+        port = _free_port()
+        procs, logs = [], []
+        for r in range(2):
+            logs.append(os.path.join(out, f"log{r}"))
+            procs.append(_spawn([here, "--ft-worker", out, str(TL), str(steps), json.dumps(cfg)],
+                                {"PTD_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                                 "PTD_TPU_NUM_PROCESSES": "2", "PTD_TPU_PROCESS_ID": str(r)},
+                                out, logs[-1]))
+        _wait_logs(procs, logs, "phase 24(c)'s 2 ranks", timeout=400)
+        res = [json.load(open(os.path.join(out, f"ft{r}.json"))) for r in range(2)]
+        dumps = find_dumps(out)
+        docs = {r: json.load(open(p)) for r, p in dumps.items()}
+        report = postmortem.postmortem(out, hb_dir=out)
+        ev0 = [r for r in metrics.read_metrics(os.path.join(out, "m0.jsonl")) if "ft_event" in r]
+        ckpt_ft = read_payload(os.path.join(out, "ck", CHECKPOINT_NAME))["ft"]
+        n_layers = _lm_mesh_cfg(cfg)["n_layers"]
+        for r, d in sorted(docs.items()):
+            print(f"[live] hang story rank {r} dump: reason {d['reason']}, in_step "
+                  f"{d['in_step']}, last_collective {d['last_collective']}, step_times "
+                  f"{d['step_times']}, membership {d['membership']}, mem_bytes "
+                  f"{d['mem_bytes']}, events {d['events_total']} ({d['events_dropped']} "
+                  f"dropped), worker {res[r]}")
+        print(f"[live] hang story: rank 0's events {[(e['ft_event'], e.get('step'), e.get('rule')) for e in ev0]}; "
+              f"checkpoint ft {ckpt_ft}; postmortem verdict: {report.get('verdict')} "
+              f"(stalled_rank {report.get('stalled_rank')}, hang_ranks "
+              f"{report.get('hang_ranks')}, frontier_desync {report.get('frontier_desync')}); "
+              f"card {card}")
+        print(postmortem.render_text(report))
+        bad = []
+        if sorted(docs) != [0, 1]:
+            bad.append(f"dumps {sorted(docs)}")
+        else:
+            d0, d1 = docs[0], docs[1]
+            if not (d0["reason"] == "hang" and (d0["in_step"] or {}).get("step") == FT_STALL_STEP
+                    and d0["last_collective"]["step"] == FT_STALL_STEP):
+                bad.append("rank 0's dump is not the hang inside step 3")
+            if not (d1["reason"] == "signal:15"
+                    and d1["last_collective"]["step"] == FT_STALL_STEP - 1):
+                bad.append("rank 1's dump is not SIGTERM one collective behind")
+        if [x["hangs"] for x in res] != [1, 0]:
+            bad.append(f"watchdog hangs {[x['hangs'] for x in res]}")
+        if [x["steps"] for x in res] != [FT_STOP_STEP] * 2 or any(
+                x["checkpoints"] != [FT_STOP_STEP] for x in res) or \
+                (ckpt_ft["step"], ckpt_ft["global_step"]) != (FT_STOP_STEP, FT_STOP_STEP):
+            bad.append("the ranks did not stop and checkpoint at the same step")
+        # The stall, and only the stall, fired the watchdog and the rule.
+        hang_steps = [e.get("step") for e in ev0 if e["ft_event"] == "hang"]
+        alerts = [(e.get("rule"), e.get("step")) for e in ev0 if e["ft_event"] == "alert"]
+        if hang_steps != [FT_STALL_STEP] or not alerts or any(
+                rule != "hang" or st is None or st < FT_STALL_STEP for rule, st in alerts):
+            bad.append(f"rank 0's hang events at steps {hang_steps}, alerts {alerts}")
+        if not (report.get("stalled_rank") == 1 and report.get("hang_ranks") == [0]
+                and report.get("frontier_desync") is True
+                and "rank 1 stalled first" in report.get("verdict", "")):
+            bad.append("the postmortem does not blame rank 1")
+        if any(x["launches"] != [n_layers * FT_STOP_STEP] * 3 for x in res):
+            bad.append(f"K1-K3 launches {[x['launches'] for x in res]}")
+        if any(x["backend"] != "gloo" for x in res):
+            bad.append("not gloo")
+        if bad:
+            raise SystemExit("phase 24(c): " + "; ".join(bad))
+        return [a + b for a, b in zip(res[0]["launches"], res[1]["launches"])]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def live_phase(dev, card, cfg, medians23, steps=16, TB=4, TL=4096):
+    """Phase 24: (a) ``lm_pretrain`` at the LM's full width and (b)
+    ``tpu_native -a resnet50 --fused-convbn`` (b256, 224x224, bf16,
+    synthetic), 16 steps each, with ``--metrics-jsonl --flight-rec
+    --hang-timeout 30 --metrics-port P --alerts default`` and the default
+    SIGTERM guard, the hub draining every record, a thread scraping
+    ``/metrics`` and ``/healthz`` every 0.5 s, the launch counters zeroed
+    just before each run and read just after; then (c) the two-rank hang
+    story.  Prints each median step against phase 23's run without flags
+    (``medians23``).  Returns the (K1, K2, K3, K4, K5) launches."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_live_")
+    launched = [0] * 5
+    try:
+        lm = ["--vocab", str(cfg["vocab_size"]), "--d-model", str(cfg["d_model"]),
+              "--n-heads", str(cfg["n_heads"]), "--n-layers", str(cfg["n_layers"]),
+              "--seq-len", str(TL), "-b", str(TB), "--steps", str(steps), "--precision",
+              "bf16", "--no-eval", "-p", "100", "--device", "cuda"]
+        image = ["-a", "resnet50", "--synthetic", "--fused-convbn", "-b", "256",
+                 "--image-size", "224", "--synthetic-length", str(256 * steps), "--epochs", "1",
+                 "--precision", "bf16", "--seed", "0", "-p", "100", "--device", "cuda"]
+        for what, fn, base in (("lm", lm_pretrain.run, lm), ("image", tpu_native.run, image)):
+            d = os.path.join(root, what)
+            os.makedirs(d)
+            port = _free_port()
+            argv = base + ["--metrics-jsonl", os.path.join(d, "m.jsonl"), "--flight-rec",
+                           os.path.join(d, "fr"), "--hang-timeout", "30", "--metrics-port",
+                           str(port), "--alerts", "default"]
+            if what == "image":
+                argv += ["--checkpoint-dir", os.path.join(d, "ck"), "--epoch-csv",
+                         os.path.join(d, "e.csv")]
+            scraper = _Scraper(port)
+            scraper.start()
+            for k in KERNEL_WRAPPERS:
+                k.launches = 0
+            trainer, _, wall = _obs_run(what, fn, argv, before_fit=_flush_each_record)
+            counts = [k.launches for k in KERNEL_WRAPPERS]
+            reads = scraper.stop()
+            launched = [a + b for a, b in zip(launched, counts)]
+            want = ([0, 0, 0, 33 * steps, 13 * steps] if what == "image" else
+                    [cfg["n_layers"] * steps] * 3 + [0, 0])
+            if counts != want or len(trainer.losses) != steps or not all(
+                    math.isfinite(float(x)) for x in trainer.losses):
+                raise SystemExit(f"phase 24 {what}: launches {counts}, expected {want}; "
+                                 f"losses {trainer.losses}")
+            _live_checks(what, d, trainer, reads, steps)
+            on = (statistics.median(trainer.step_times[1:]) * 1e3,
+                  statistics.median(trainer.step_times[-3:]) * 1e3)
+            off = medians23[what]
+            print(f"[live] {what} with the live flags: steps "
+                  f"{[t * 1e3 for t in trainer.step_times]} ms, run {wall} s; median (steps "
+                  f"2-{steps}) {on[0]} ms vs phase 23's without flags {off[0]} ms: "
+                  f"{100 * (on[0] - off[0]) / off[0]} %; last 3 {on[1]} vs {off[1]} ms: "
+                  f"{100 * (on[1] - off[1]) / off[1]} %; launches K1-K5 {counts}; card {card}")
+            del trainer
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        k123 = _hang_story(card, cfg)
+        print(f"[time] phase 24(c) {time.perf_counter() - t0} s")
+        launched = [a + b for a, b in zip(launched, k123 + [0, 0])]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launched
@@ -3431,8 +3775,13 @@ def main() -> int:
 
     # 23. the training metrics stream through both trainers
     t0 = time.perf_counter()
-    k1_obs, k2_obs, k3_obs, k4_obs, k5_obs = obs_phase(dev, card, cfg)
+    (k1_obs, k2_obs, k3_obs, k4_obs, k5_obs), medians23 = obs_phase(dev, card, cfg)
     print(f"[time] phase 23 took {time.perf_counter() - t0} s")
+
+    # 24. the death paths and the live plane through both trainers
+    t0 = time.perf_counter()
+    k1_live, k2_live, k3_live, k4_live, k5_live = live_phase(dev, card, cfg, medians23)
+    print(f"[time] phase 24 took {time.perf_counter() - t0} s")
 
     path = results["path"]
     kernels = [dict(
@@ -3440,15 +3789,17 @@ def main() -> int:
         source="pytorch_distributed_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="pytorch_distributed_tpu/ops/flash_attention.py:37",
         launches=(serve_launches + train_launches[0] + k1 + k1_gen + k1_ce + k1_int8 + k1_a9
-                  + k1_mesh + k1_obs),
+                  + k1_mesh + k1_obs + k1_live),
         max_abs_err=path["err"],
         ms=path["ms"], plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
         bound_by=path["bound_by"], library_ms=path["library_ms"])]
     bpath = bwd["path"]
     for name, key, line, n in (("flash_attention_bwd_dq", "dq", 185,
-                                train_launches[1] + k2 + k2_ce + k2_a9 + k2_mesh + k2_obs),
+                                train_launches[1] + k2 + k2_ce + k2_a9 + k2_mesh + k2_obs
+                                + k2_live),
                                ("flash_attention_bwd_dkv", "dkv", 214,
-                                train_launches[2] + k3 + k3_ce + k3_a9 + k3_mesh + k3_obs)):
+                                train_launches[2] + k3 + k3_ce + k3_a9 + k3_mesh + k3_obs
+                                + k3_live)):
         kernels.append(dict(
             name=name, route="cuda",
             source="pytorch_distributed_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -3457,9 +3808,11 @@ def main() -> int:
             plain_ms=bpath["plain_ms"], bound_ms=bpath[key]["bound_ms"],
             bound_by=bpath[key]["bound_by"], library_ms=bpath["library_ms"]))
     for name, key, line, n in (("fused_dgrad_wgrad", "k4_path", 122,
-                                image_launches[0] + k4 + k4_data + k4_dp + k4_a9 + k4_obs),
+                                image_launches[0] + k4 + k4_data + k4_dp + k4_a9 + k4_obs
+                                + k4_live),
                                ("fused_dgrad_wgrad_3x3", "k5_path", 210,
-                                image_launches[1] + k5 + k5_data + k5_dp + k5_a9 + k5_obs)):
+                                image_launches[1] + k5 + k5_data + k5_dp + k5_a9 + k5_obs
+                                + k5_live)):
         kp = conv[key]
         kernels.append(dict(
             name=name, route="cuda",
@@ -3467,7 +3820,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-23 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-24 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3485,4 +3838,6 @@ if __name__ == "__main__":
         sys.exit(lm_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--lm-mesh-worker"]:
         sys.exit(lm_mesh_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ft-worker"]:
+        sys.exit(ft_worker(sys.argv[2:]))
     sys.exit(main())

@@ -303,8 +303,14 @@ def _install_pool_reaper() -> None:
     _REAPER_INSTALLED = True
 
 
+def _uint8_images(tensors: Dict[str, torch.Tensor]) -> bool:
+    images = tensors.get("images")
+    return images is not None and images.dtype == torch.uint8
+
+
 class DeviceFeeder:
-    """Host batches in, ``{key: tensor on device}`` out, ``prefetch`` deep.
+    """Host batches in, ``{key: tensor on device}`` out, ``prefetch`` deep
+    (image batches, and the LM's ``{"tokens": ...}`` batches).
 
     A producer thread pulls host batches, converts them to pinned tensors
     and, on a CUDA device, issues their copies on a side stream, normalizes
@@ -334,13 +340,13 @@ class DeviceFeeder:
     def _put(self, batch: Batch, stream):
         tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
         if stream is None:
-            if tensors["images"].dtype == torch.uint8:
+            if _uint8_images(tensors):
                 tensors["images"] = self._normalize(tensors["images"])
             return tensors, None
         with torch.cuda.stream(stream):
             out = {k: v.pin_memory().to(self.device, non_blocking=True)
                    for k, v in tensors.items()}
-            if out["images"].dtype == torch.uint8:
+            if _uint8_images(out):
                 out["images"] = self._normalize(out["images"])
             event = torch.cuda.Event()
             event.record(stream)

@@ -33,10 +33,11 @@ def seed_everything(seed: Optional[int]) -> None:
 
 def run_recipe(description: str, argv=None, precision_default: Optional[str] = None,
                explicit_collectives: bool = False, grad_compress_default: Optional[str] = None,
-               epoch_csv_default: Optional[str] = None, bootstrap: bool = True) -> Trainer:
+               epoch_csv_default: Optional[str] = None, bootstrap: bool = True,
+               before_fit: Optional[Callable[[Trainer], None]] = None) -> Trainer:
     """Parse ``argv``, bootstrap (unless ``bootstrap`` is false), build the
-    trainer, ``fit``; returns the trainer, its process group still up
-    (``finish`` takes it down)."""
+    trainer, call ``before_fit`` on it (when given), ``fit``; returns the
+    trainer, its process group still up (``finish`` takes it down)."""
     cfg: Config = parse_config(argv, description=description)
     seed_everything(cfg.seed)
     if cfg.precision is None:  # an explicit --precision always wins
@@ -53,6 +54,8 @@ def run_recipe(description: str, argv=None, precision_default: Optional[str] = N
         if isinstance(e, NotImplementedError):  # an arch or layer not ported yet
             raise SystemExit(str(e)) from e
         raise
+    if before_fit is not None:
+        before_fit(trainer)
     trainer.fit()
     return trainer
 

@@ -48,18 +48,22 @@ Its argument checks run first, in its order (``--remat`` applies to the
 pipeline stages only, so without ``--pp`` it exits with the JAX message).
 ``--metrics-jsonl``, ``--hb-dir`` / ``--hb-interval``, ``--mfu``,
 ``--goodput`` and ``--step-attr`` are the metrics stream of
-``train/observe.py``, with the JAX recipe's help.
+``train/observe.py``; ``--flight-rec``, ``--hang-timeout``,
+``--metrics-port`` and ``--alerts`` its death paths and live plane, with
+the JAX recipe's help.  As in the JAX recipe, a ``PreemptionGuard`` on
+``--preempt-signals`` (SIGTERM by default) is installed on the main thread
+around ``fit``: on the signal the ranks agree to stop at a step boundary,
+checkpoint the steps done (with ``--checkpoint-dir``) and return.
 Every flag of a layer not ported yet (sequence and expert parallelism,
-the pipeline and its remat, fault tolerance, the rest of observability) is
-parsed, and
-a value other than its default exits naming the ROADMAP item that will
-port it.  The JAX recipe's SIGTERM preemption guard is one of them: here
-SIGTERM ends the process.
+the pipeline and its remat, the divergence policy and elastic membership,
+the ledgers and the recompile watch) is parsed, and a value other than its
+default exits naming the ROADMAP item that will port it.
 """
 
 from __future__ import annotations
 
 import argparse
+import threading
 
 import numpy as np
 import torch
@@ -76,21 +80,20 @@ from pytorch_distributed_tpu_torch.train.lm import (
     TextFileDataset,
     warmup_cosine_lr,
 )
+from pytorch_distributed_tpu_torch.utils.preempt import PreemptionGuard, parse_signals
 
 _PARALLEL = "A10 (model parallelism: --sp, --ep, --pp)"
-_FT = "A11 (fault tolerance: --nan-guard, --elastic, the preemption guard)"
-_OBS = "A12 (observability: ledgers, recompile watch, flight recorder, live export, alerts)"
+_FT = "A11 (fault tolerance: --nan-guard, --elastic)"
+_OBS = "A12 (observability: ledgers, recompile watch)"
 # Flags parsed for the JAX recipe's surface but not ported, each with the
 # ROADMAP item (queue A) that will port it.
 NOT_PORTED = {
     **dict.fromkeys(("sp", "sp_impl", "ep", "moe_top_k", "pp",
                      "microbatches", "schedule", "pp_virtual"), _PARALLEL),
-    **dict.fromkeys(("preempt_signals", "nan_guard", "ft_rollback_k",
-                     "ft_check_every", "ft_lr_backoff", "elastic", "min_ranks",
-                     "rescale_lr"), _FT),
+    **dict.fromkeys(("nan_guard", "ft_rollback_k", "ft_check_every",
+                     "ft_lr_backoff", "elastic", "min_ranks", "rescale_lr"), _FT),
     **dict.fromkeys(("watch_recompiles", "comm_ledger", "mem_ledger",
-                     "lowering_cache", "flight_rec", "hang_timeout",
-                     "metrics_port", "alerts"), _OBS),
+                     "lowering_cache"), _OBS),
 }
 
 
@@ -192,7 +195,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "resume: a lost process loses at most N steps); "
                         "0 = end-of-run only")
     p.add_argument("--preempt-signals", type=str, default="term",
-                   dest="preempt_signals", metavar="SIGS", help="not ported yet")
+                   dest="preempt_signals", metavar="SIGS",
+                   help="comma-separated signals that trigger checkpoint-"
+                        "and-exit at the next step boundary (default "
+                        "'term'; add 'int' for interactive Ctrl-C runs)")
     p.add_argument("--nan-guard", action="store_true", dest="nan_guard",
                    help="not ported yet")
     p.add_argument("--ft-rollback-k", type=int, default=3, dest="ft_rollback_k",
@@ -242,14 +248,32 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="PATH", help="not ported yet")
     p.add_argument("--lowering-cache", type=str, default=None,
                    dest="lowering_cache", metavar="DIR", help="not ported yet")
-    p.add_argument("--flight-rec", type=str, default=None, dest="flight_rec",
-                   metavar="DIR", help="not ported yet")
+    p.add_argument("--flight-rec", type=str, default=None,
+                   dest="flight_rec", metavar="DIR",
+                   help="flight recorder (obs/flightrec.py): bounded "
+                        "in-memory ring of step/collective/ft events "
+                        "dumped to DIR/flightrec_rank<k>.json on any "
+                        "death path (signal, checkpoint corruption, "
+                        "unhandled exception, hang watchdog); merge dumps "
+                        "with tools/postmortem.py")
     p.add_argument("--hang-timeout", type=float, default=30.0,
-                   dest="hang_timeout", metavar="SEC", help="not ported yet")
-    p.add_argument("--metrics-port", type=int, default=0, dest="metrics_port",
-                   metavar="PORT", help="not ported yet")
+                   dest="hang_timeout", metavar="SEC",
+                   help="hang-watchdog floor: flag a step exceeding "
+                        "max(SEC, 4×p95), emit a `hang` ft_event with the "
+                        "last-entered collective, and dump the flight "
+                        "ring pre-mortem (needs --flight-rec)")
+    p.add_argument("--metrics-port", type=int, default=0,
+                   dest="metrics_port", metavar="PORT",
+                   help="serve live Prometheus metrics on PORT + rank "
+                        "(obs/export.py; one daemon thread per rank, "
+                        "latest drained record; 0 disables; watch the "
+                        "fleet with tools/obs_live.py)")
     p.add_argument("--alerts", type=str, default=None, dest="alerts",
-                   metavar="RULES", help="not ported yet")
+                   metavar="RULES",
+                   help="declarative alert rules (obs/alerts.py): a JSON "
+                        "rules file or 'default' for the built-in set; "
+                        "firing alerts are booked as `alert` ft_events "
+                        "in the metrics JSONL and exported to /metrics")
     p.add_argument("--step-attr", action="store_true", dest="step_attr",
                    help="exact per-step wall-time attribution "
                         "(obs/stepattr.py): stamp attr_* fields — compute "
@@ -326,10 +350,11 @@ def check_mesh_args(args, n: int) -> None:
         raise SystemExit("--generate supports plain dp runs only")
 
 
-def run(argv=None) -> LMTrainer:
+def run(argv=None, before_fit=None) -> LMTrainer:
     """Parse ``argv``, join the launcher's process group (if any), build the
     mesh, the model and the data, train, optionally decode; returns the
-    trainer (its ``ctx`` still up; ``main`` shuts it down)."""
+    trainer (its ``ctx`` still up; ``main`` shuts it down).  ``before_fit``:
+    called with the built trainer just before ``fit``."""
     parser = build_parser()
     args = parser.parse_args(argv)
     check_args(args)
@@ -339,13 +364,13 @@ def run(argv=None) -> LMTrainer:
                              f"PyTorch package yet: ROADMAP.md item {item}")
     ctx = initialize(device=args.device)
     try:
-        return _run(args, ctx)
+        return _run(args, ctx, before_fit)
     except BaseException:
         shutdown(ctx)
         raise
 
 
-def _run(args, ctx) -> LMTrainer:
+def _run(args, ctx, before_fit=None) -> LMTrainer:
     n = ctx.process_count
     check_mesh_args(args, n)
     device = device_for(ctx, args.device)
@@ -396,25 +421,38 @@ def _run(args, ctx) -> LMTrainer:
             args.vocab, seed=args.seed + 1)
     schedule = (warmup_cosine_lr(args.lr, args.warmup_steps, args.steps)
                 if args.warmup_steps > 0 else None)
+    # The preemption guard on --preempt-signals, installed on the main
+    # thread (Python's rule for signal handlers) and taken down after fit.
+    guard = None
+    if threading.current_thread() is threading.main_thread():
+        guard = PreemptionGuard(signals=parse_signals(args.preempt_signals)).install()
     try:
-        trainer = LMTrainer(model, dataset, args.batch_size, lr=args.lr,
-                            eval_dataset=eval_dataset, eval_every=args.eval_every,
-                            eval_batches=args.eval_batches, lr_schedule=schedule,
-                            clip_grad_norm=args.clip_grad_norm,
-                            accum_steps=args.accum_steps,
-                            fused_ce_chunks=args.fused_ce,
-                            fused_ce_mode=args.fused_ce_mode,
-                            checkpoint_dir=args.checkpoint_dir,
-                            save_steps=args.save_steps, resume=args.resume,
-                            grad_compress=args.grad_compress, zero=args.zero,
-                            overlap=args.overlap, bucket_mb=args.bucket_mb, mesh=mesh,
-                            metrics_jsonl=args.metrics_jsonl, hb_dir=args.hb_dir,
-                            hb_interval_s=args.hb_interval_s, mfu=args.mfu,
-                            goodput=args.goodput, step_attr=args.step_attr)
-    except NotImplementedError as e:  # an orbax checkpoint directory
-        raise SystemExit(str(e)) from e
-    trainer.ctx = ctx
-    final_loss = trainer.fit(args.steps, print_freq=args.print_freq)
+        try:
+            trainer = LMTrainer(model, dataset, args.batch_size, lr=args.lr,
+                                eval_dataset=eval_dataset, eval_every=args.eval_every,
+                                eval_batches=args.eval_batches, lr_schedule=schedule,
+                                clip_grad_norm=args.clip_grad_norm,
+                                accum_steps=args.accum_steps,
+                                fused_ce_chunks=args.fused_ce,
+                                fused_ce_mode=args.fused_ce_mode,
+                                checkpoint_dir=args.checkpoint_dir,
+                                save_steps=args.save_steps, resume=args.resume,
+                                grad_compress=args.grad_compress, zero=args.zero,
+                                overlap=args.overlap, bucket_mb=args.bucket_mb, mesh=mesh,
+                                metrics_jsonl=args.metrics_jsonl, hb_dir=args.hb_dir,
+                                hb_interval_s=args.hb_interval_s, mfu=args.mfu,
+                                goodput=args.goodput, step_attr=args.step_attr, preempt=guard,
+                                flight_rec=args.flight_rec, hang_timeout=args.hang_timeout,
+                                metrics_port=args.metrics_port, alerts=args.alerts)
+        except NotImplementedError as e:  # an orbax checkpoint directory
+            raise SystemExit(str(e)) from e
+        trainer.ctx = ctx
+        if before_fit is not None:
+            before_fit(trainer)
+        final_loss = trainer.fit(args.steps, print_freq=args.print_freq)
+    finally:
+        if guard is not None:
+            guard.uninstall()
     if args.generate > 0:  # plain-dp only, validated with the args above
         prompt = torch.from_numpy(dataset.batch(0, 1)[:, :min(16, args.seq_len // 2)])
         toks = greedy_generate(model, prompt.to(device), args.generate)

@@ -26,10 +26,12 @@ hand-written kernels K4 (1x1) and K5 (3x3).
 from pytorch_distributed_tpu_torch.recipes._common import finish, run_recipe
 
 
-def run(argv=None):
-    """Train as the recipe does; returns the trainer (its group still up)."""
+def run(argv=None, before_fit=None):
+    """Train as the recipe does; returns the trainer (its group still up).
+    ``before_fit``: called with the built trainer just before ``fit``."""
     return run_recipe("ImageNet Training on CUDA (canonical recipe)", argv,
-                      precision_default="bf16", epoch_csv_default="tpu_native.csv")
+                      precision_default="bf16", epoch_csv_default="tpu_native.csv",
+                      before_fit=before_fit)
 
 
 def main(argv=None) -> float:

@@ -6,13 +6,13 @@ plus ``--device`` (default ``cuda``).
 
 Every flag is parsed.  ``check_ported`` exits naming the ROADMAP item that
 will port a flag whose value differs from its default and whose layer is
-not ported yet: fault tolerance beyond the in-step ``--nan-guard`` gate and
-the checkpoints (A11) and observability beyond the metrics stream (A12:
-the ledgers, the recompile watch, the flight recorder, live export and
-alerts).  The metrics stream is ported: ``--metrics-jsonl``, ``--hb-dir``
-/ ``--hb-interval``, ``--mfu``, ``--goodput``, ``--step-attr``,
-``--telemetry-csv`` and ``--profile-dir`` / ``--profile-epochs`` /
-``--profile-steps``, with the JAX package's help.  The
+not ported yet: the divergence rollback policy and elastic membership
+(A11) and the ledgers and the recompile watch (A12).  The metrics stream is
+ported: ``--metrics-jsonl``, ``--hb-dir`` / ``--hb-interval``, ``--mfu``,
+``--goodput``, ``--step-attr``, ``--telemetry-csv`` and ``--profile-dir`` /
+``--profile-epochs`` / ``--profile-steps``; so are the death paths and the
+live plane: ``--preempt-signals``, ``--flight-rec``, ``--hang-timeout``,
+``--metrics-port`` and ``--alerts``, all with the JAX package's help.  The
 gradient-communication flags (``--grad-compress``, ``--zero``,
 ``--overlap``, ``--bucket-mb``) are ported with the JAX package's help.
 ``--dist-file`` is accepted and unused, as in the JAX package (the
@@ -32,15 +32,14 @@ from typing import Optional
 from pytorch_distributed_tpu_torch import models
 from pytorch_distributed_tpu_torch.train.checkpoint import ORBAX_MESSAGE
 
-_FT = "A11 (fault tolerance: rollback policy, --elastic, the preemption guard)"
-_OBS = "A12 (observability: ledgers, recompile watch, flight recorder, live export, alerts)"
+_FT = "A11 (fault tolerance: rollback policy, --elastic)"
+_OBS = "A12 (observability: ledgers, recompile watch)"
 
 # dest -> the ROADMAP item that will port it, for flags not ported yet.
 NOT_PORTED = {
     **dict.fromkeys(("ft_rollback_k", "ft_check_every", "ft_lr_backoff",
-                     "preempt_signals", "elastic", "min_ranks", "rescale_lr"), _FT),
-    **dict.fromkeys(("watch_recompiles", "comm_ledger", "mem_ledger", "lowering_cache",
-                     "flight_rec", "hang_timeout", "metrics_port", "alerts"), _OBS),
+                     "elastic", "min_ranks", "rescale_lr"), _FT),
+    **dict.fromkeys(("watch_recompiles", "comm_ledger", "mem_ledger", "lowering_cache"), _OBS),
 }
 
 
@@ -222,7 +221,8 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
     add("--ft-lr-backoff", default=d.ft_lr_backoff, type=float, dest="ft_lr_backoff",
         metavar="F", help=_NOT_PORTED_HELP)
     add("--preempt-signals", default=d.preempt_signals, type=str, dest="preempt_signals",
-        metavar="SIGS", help=_NOT_PORTED_HELP)
+        metavar="SIGS", help="comma-separated signals the preemption guard traps "
+        "(default 'term'; add 'int' for interactive Ctrl-C runs, e.g. 'term,int')")
     add("--elastic", action="store_true", dest="elastic", help=_NOT_PORTED_HELP)
     add("--min-ranks", default=d.min_ranks, type=int, dest="min_ranks", metavar="N",
         help=_NOT_PORTED_HELP)
@@ -271,15 +271,28 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
         help="sample device memory stats to this CSV every 500ms "
         "during training (statistics.sh-in-process)")
     for flag, dest in (("--comm-ledger", "comm_ledger"), ("--mem-ledger", "mem_ledger"),
-                       ("--lowering-cache", "lowering_cache"), ("--flight-rec", "flight_rec"),
-                       ("--alerts", "alerts")):
+                       ("--lowering-cache", "lowering_cache")):
         add(flag, default=getattr(d, dest), type=str, dest=dest, help=_NOT_PORTED_HELP)
     add("--watch-recompiles", action="store_true", dest="watch_recompiles",
         help=_NOT_PORTED_HELP)
+    add("--flight-rec", default=d.flight_rec, type=str, dest="flight_rec", metavar="DIR",
+        help="flight recorder (obs/flightrec.py): keep a bounded in-memory ring of "
+        "step/collective/ft events (~zero hot-path cost) and dump it to "
+        "DIR/flightrec_rank<k>.json on any death path — signal, checkpoint corruption, "
+        "unhandled exception, or the collective-hang watchdog; merge dumps with "
+        "tools/postmortem.py")
     add("--hang-timeout", default=d.hang_timeout, type=float, dest="hang_timeout",
-        metavar="SEC", help=_NOT_PORTED_HELP)
+        metavar="SEC", help="hang-watchdog floor: flag a step exceeding max(SEC, 4×p95 of "
+        "completed steps), emit a `hang` ft_event with the last-entered collective, and "
+        "dump the flight ring pre-mortem (needs --flight-rec)")
     add("--metrics-port", default=d.metrics_port, type=int, dest="metrics_port",
-        metavar="PORT", help=_NOT_PORTED_HELP)
+        metavar="PORT", help="serve live Prometheus metrics on PORT + rank (one daemon "
+        "thread per rank, latest drained record; 0 disables; watch the fleet with "
+        "tools/obs_live.py)")
+    add("--alerts", default=d.alerts, type=str, dest="alerts", metavar="RULES",
+        help="declarative alert rules: a JSON rules file or 'default' for the built-in set "
+        "(obs/alerts.py); firing alerts are booked as `alert` ft_events in the metrics "
+        "JSONL and exported to /metrics")
     add("--stem", default=d.stem, choices=("conv7", "space_to_depth"),
         help="ResNet stem: torchvision conv7 or the same function on 2x2 "
         "space-to-depth packed input")

@@ -41,21 +41,29 @@ The metrics stream (``train/observe.py``): ``metrics_jsonl`` (a record
 per step with the step's norms), ``hb_dir`` / ``hb_interval_s``, ``mfu``
 (``lm_step_cost_for`` with the fused-CE tax, over the mesh's ranks),
 ``goodput`` and ``step_attr``, with the JAX ``LMTrainer``'s names and
-meanings; each step runs inside an ``lm_step`` span.
+meanings; each step runs inside an ``lm_step`` span.  The death paths and
+the live plane: ``flight_rec`` / ``hang_timeout``, ``metrics_port`` and
+``alerts``; ``preempt`` (a ``utils/preempt.py`` guard, agreed over the
+mesh's ranks every ``print_freq`` steps: a stop checkpoints the step
+reached) and ``chaos`` (``ft/chaos.py`` hooks), in the JAX loop's order.
+``prefetch`` token batches are built on the host and copied to the card by
+a feeder thread (``data/loader.py::DeviceFeeder``), the JAX ``AsyncFeeder``.
 
 Not ported yet (ROADMAP.md queue A): sequence, expert and pipeline
-parallelism, the fault-tolerance layer, the observability layer beyond the
-metrics stream, elastic membership and the background feeder thread.
+parallelism, the divergence rollback policy, elastic membership and the
+ledgers of A12/A13.
 """
 
 from __future__ import annotations
 
+import signal
 import warnings
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from pytorch_distributed_tpu_torch.data.loader import DeviceFeeder
 from pytorch_distributed_tpu_torch.obs.flops import lm_step_cost_for
 from pytorch_distributed_tpu_torch.obs.trace import scope
 from pytorch_distributed_tpu_torch.ops import qcomm
@@ -79,6 +87,7 @@ from pytorch_distributed_tpu_torch.utils.convert import (
     lm_state_dict_from_jax,
     momentum_state_dict,
 )
+from pytorch_distributed_tpu_torch.utils.preempt import PreemptionAgreement
 
 
 class SyntheticTokenDataset:
@@ -619,9 +628,18 @@ class LMTrainer:
     train step (the gradient-communication stack); its residual is saved
     and restored with the checkpoints.
 
-    ``metrics_jsonl``, ``hb_dir``, ``hb_interval_s``, ``mfu``, ``goodput``
-    and ``step_attr``: the metrics stream (``train/observe.py``), as the
-    JAX ``LMTrainer`` takes them; ``obs`` is its ``MetricsLogger``.
+    ``metrics_jsonl``, ``hb_dir``, ``hb_interval_s``, ``mfu``, ``goodput``,
+    ``step_attr``, ``flight_rec``, ``hang_timeout``, ``metrics_port`` and
+    ``alerts``: the observability of ``train/observe.py``, as the JAX
+    ``LMTrainer`` takes them; ``obs`` is its ``MetricsLogger``.
+
+    ``preempt``: an installed ``PreemptionGuard``; every ``print_freq``
+    steps the ranks agree on its flag, and on a stop ``fit`` logs a
+    ``preempt`` event, skips the final eval and checkpoints the steps
+    completed.  ``chaos``: an ``ft/chaos.py`` injector driven once per
+    step.  ``prefetch``: token batches a feeder thread keeps in flight (0:
+    built and copied in the loop); the batches and their order are the
+    same either way.
 
     ``checkpoint_dir``: checkpoint every ``save_steps`` steps (0: only at the
     end of ``fit``) there.  ``resume``: a checkpoint file to restore the
@@ -641,7 +659,9 @@ class LMTrainer:
                  overlap: str = "none", bucket_mb: float = overlap_lib.DEFAULT_BUCKET_MB,
                  mesh=None, metrics_jsonl: Optional[str] = None, hb_dir: Optional[str] = None,
                  hb_interval_s: float = 5.0, mfu: bool = False, goodput: bool = False,
-                 step_attr: bool = False):
+                 step_attr: bool = False, preempt=None, chaos=None, prefetch: int = 2,
+                 flight_rec: Optional[str] = None, hang_timeout: float = 30.0,
+                 metrics_port: int = 0, alerts: Optional[str] = None):
         self.model = model
         self.mesh = _mesh_of(model, mesh)
         self.is_primary = self.mesh is None or self.mesh.is_primary
@@ -668,8 +688,14 @@ class LMTrainer:
             hb_world=mesh_.size("data") if mesh_ is not None else 1, mfu=mfu,
             goodput=goodput, step_attr=step_attr,
             cost=lambda: lm_step_cost_for(model, batch_size, dataset.seq_len,
-                                          fused_ce_chunks=fused_ce_chunks))
+                                          fused_ce_chunks=fused_ce_chunks),
+            flight_rec=flight_rec, hang_timeout=hang_timeout, metrics_port=metrics_port,
+            alerts=alerts)
         self.obs = self.ro.obs
+        self.preempt = preempt
+        self.chaos = chaos
+        self.prefetch = int(prefetch)
+        self._agree = None
         self.eval_dataset = eval_dataset
         self.eval_every = eval_every
         self.eval_batches = eval_batches
@@ -698,6 +724,7 @@ class LMTrainer:
         Every rank calls it (a sharded model's trees are gathered by
         collectives); rank 0 writes."""
         trees = self._checkpoint_trees()
+        self.ro.checkpoint(completed)   # every rank's ring, as in JAX
         if not self.is_primary:
             return
         save_checkpoint(self.checkpoint_dir, self.model, self.optimizer, completed, 0,
@@ -763,6 +790,23 @@ class LMTrainer:
     def _tokens(self, ds, step: int) -> torch.Tensor:
         return torch.from_numpy(self._local_batch(ds, step)).to(self.model.device)
 
+    def _token_iter(self, start: int, steps: int):
+        """This rank's token batches of steps ``[start, steps)`` on the
+        device: ``prefetch`` deep from a feeder thread (host assembly and
+        a pinned copy on a side stream), or built in the loop at 0."""
+        if self.prefetch <= 0:
+            return (self._tokens(self.dataset, i) for i in range(start, steps))
+        host = ({"tokens": self._local_batch(self.dataset, i)} for i in range(start, steps))
+        return _field(DeviceFeeder(self.model.device, prefetch=self.prefetch)(host), "tokens")
+
+    def _preempt_agreed(self) -> bool:
+        """Did any rank's guard flag?  Every rank calls this at the same
+        step: a collective over the mesh's ranks (all of them, so the
+        model groups of a ``data × model`` mesh stop together)."""
+        if self._agree is None:
+            self._agree = PreemptionAgreement(_world(self.mesh), self.model.device)
+        return self._agree(self.preempt.triggered)
+
     def evaluate(self) -> Tuple[float, float, float]:
         """Held-out ``(loss, perplexity, next-token acc%)`` over
         ``eval_batches`` batches; prints the summary line."""
@@ -784,31 +828,55 @@ class LMTrainer:
     def fit(self, steps: int, print_freq: int = 10) -> float:
         """Train up to step ``steps`` (from the resumed step, else 0);
         returns the last step's loss.  The metrics stream closes at the
-        end of the steps (before the final eval), as in the JAX trainer."""
+        end of the steps (before the final eval), as in the JAX trainer.
+        A preemption the ranks agree on stops the loop at a step boundary;
+        the run then skips the final eval and checkpoints the steps done.
+        Any exception dumps the flight ring before it propagates."""
         meters = StepMeters(
             steps,
             [("loss", "Loss", ":.4e"), ("acc", "Acc@1", ":6.2f")],
             prefix="Step: ",
         )
         final_ppl = None  # ppl from an interval eval on the very last step
+        preempted = False
         completed = start = min(self._start_step, steps)
         tokens_per_step = self.batch_size * self.dataset.seq_len
-        ro = self.ro
-        meters.restart_clock()
+        ro, chaos = self.ro, self.chaos
+        token_iter = self._token_iter(start, steps)
+        ro.arm(getattr(self.preempt, "_signals", None) or (signal.SIGTERM,))
         try:
+            meters.restart_clock()
             for i in range(start, steps):
+                # At print_freq cadence: the agreement is a collective every
+                # rank runs at the same step, off the per-step path.
+                if (self.preempt is not None and i % print_freq == 0
+                        and self._preempt_agreed()):
+                    print(f"=> preemption signal: stopping at step {i}", flush=True)
+                    self.obs.log_event("preempt", step=i)
+                    preempted = True
+                    break
+                if chaos is not None:
+                    chaos.on_step(self, i)
+                # data_wait holds the batch and the chaos batch hook, so an
+                # injected loader delay lands in the measured component.
                 with ro.data_wait():
-                    tokens = self._tokens(self.dataset, i)
+                    tokens = next(token_iter)
+                    if chaos is not None:
+                        tokens = chaos.on_batch(i, tokens)
                 lr = self.lr_schedule(i) if self.lr_schedule is not None else self.lr
+                ro.step_begin(i)
+                if chaos is not None:
+                    chaos.on_collective(self, i)
                 with scope("lm_step"), ro.device_window():
                     metrics = self.step_fn(tokens, lr)
+                ro.step_end(i)
+                completed = i + 1
                 with ro.host_sync():
                     dt = meters.update(metrics, self.batch_size)
                 self.step_times.append(dt)
                 self.losses.append(metrics["loss"])
                 ro.log_step(i, dt, tokens_per_step, lr, dict(metrics))
                 meters.maybe_display(i, print_freq)
-                completed = i + 1
                 if (self.checkpoint_dir and self.save_steps > 0
                         and completed % self.save_steps == 0):
                     self._save_checkpoint(completed)
@@ -820,10 +888,16 @@ class LMTrainer:
                     meters.restart_clock()  # eval must not pollute the meter
                 else:
                     final_ppl = None
+        except BaseException as e:
+            ro.dump_exception(e, completed)
+            raise
         finally:
+            token_iter.close()  # stops the feeder thread on an early exit
             ro.close(completed - 1)
         is_best = False
-        if self._eval_fn is not None:
+        if self._eval_fn is not None and not preempted:
+            # A preempted run skips the final eval: the grace window belongs
+            # to the checkpoint.
             if final_ppl is None:  # the last step did not land on an eval
                 _, final_ppl, _ = self.evaluate()
             # <= so the final state is marked best when it ties the best
@@ -831,5 +905,17 @@ class LMTrainer:
             is_best = final_ppl <= self.best_ppl
             self.best_ppl = min(self.best_ppl, final_ppl)
         if self.checkpoint_dir:
+            # Its ft record holds the steps completed: a preempted run
+            # resumes at the step where it stopped.
             self._save_checkpoint(completed, is_best=is_best)
         return meters["loss"].val
+
+
+def _field(gen, key):
+    """``item[key]`` of each item of ``gen``; closing this closes ``gen``
+    (and so stops a feeder's thread)."""
+    try:
+        for item in gen:
+            yield item[key]
+    finally:
+        gen.close()

@@ -44,15 +44,28 @@ around the meters and the record), the ``--telemetry-csv`` sampler as a
 sink of the hub, and ``--profile-dir`` traces windowed per epoch and step
 (``--profile-epochs``, ``--profile-steps``).
 
+The death paths and the live plane, wired as in the JAX trainer: ``fit``
+installs a ``PreemptionGuard`` on ``--preempt-signals`` (SIGTERM by
+default; main thread only) unless one is passed, polls the flag agreed
+over the ranks every ``--print-freq`` steps and at each epoch's end, and on
+a stop writes a step-granular checkpoint, logs a ``preempt`` event and
+stops; ``--flight-rec`` keeps the ring (each step's window and collective
+region, every ft_event, each checkpoint), dumps it on the signal (then
+chains to the guard), on any exception (re-raised) and from the
+``--hang-timeout`` watchdog; ``--metrics-port`` serves the latest record
+and ``--alerts`` books firings as ``alert`` events.  ``chaos=`` takes the
+``ft/chaos.py`` hooks where the JAX trainer calls them.
+
 Not ported yet, each exiting from ``train/config.py`` with its ROADMAP item:
-the divergence rollback policy, elastic membership and the preemption guard
-(A11), and the observability layer beyond the metrics stream (A12).
-``--nan-guard`` is ported as the in-step gate.
+the divergence rollback policy and elastic membership (A11), and the
+ledgers and the recompile watch (A12).  ``--nan-guard`` is ported as the
+in-step gate.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 import warnings
 from typing import Optional
@@ -87,6 +100,11 @@ from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.train.steps import make_eval_step, make_train_step
 from pytorch_distributed_tpu_torch.parallel import DistContext, device_for
 from pytorch_distributed_tpu_torch.utils.csvlog import EpochCSVLogger
+from pytorch_distributed_tpu_torch.utils.preempt import (
+    PreemptionAgreement,
+    PreemptionGuard,
+    parse_signals,
+)
 from pytorch_distributed_tpu_torch.utils.telemetry import TelemetrySampler
 
 
@@ -95,11 +113,18 @@ class Trainer:
     every train step's host seconds (as the meter measures them) and its
     loss (a device scalar); ``eval_history`` holds ``(loss, acc1, acc5)`` per
     ``validate``; ``global_step`` counts the train steps taken, restored by
-    ``--resume``."""
+    ``--resume``.  ``preempt``: an installed ``PreemptionGuard`` (else
+    ``fit`` installs one on ``--preempt-signals``); ``chaos``: an
+    ``ft/chaos.py`` injector; ``preempted`` says whether ``fit`` stopped on
+    one."""
 
     def __init__(self, cfg: Config, ctx: Optional[DistContext] = None,
-                 explicit_collectives: bool = False):
+                 explicit_collectives: bool = False, preempt=None, chaos=None):
         self.cfg = cfg
+        self.preempt = preempt
+        self.chaos = chaos
+        self.preempted = False
+        self._agree = None
         self.ctx = ctx or DistContext(0, 1, None)
         self.explicit_collectives = explicit_collectives
         self.primary = self.ctx.is_primary
@@ -155,9 +180,11 @@ class Trainer:
         self.ro = TrainObs(self.device, self.ctx.process_index, self.ctx.process_count,
                            metrics_jsonl=cfg.metrics_jsonl, hb_dir=cfg.hb_dir,
                            hb_interval_s=cfg.hb_interval_s, mfu=cfg.mfu, goodput=cfg.goodput,
-                           step_attr=cfg.step_attr,
+                           step_attr=cfg.step_attr, hb_world=self.ctx.process_count,
                            cost=lambda: image_step_cost(cfg.arch, cfg.batch_size,
-                                                        cfg.image_size, cfg.num_classes))
+                                                        cfg.image_size, cfg.num_classes),
+                           flight_rec=cfg.flight_rec, hang_timeout=cfg.hang_timeout,
+                           metrics_port=cfg.metrics_port, alerts=cfg.alerts)
         self.obs = self.ro.obs     # the hub: the epoch CSV is its epoch sink
         self.obs.register(self.csv)
         self.step_times: list = []
@@ -235,7 +262,15 @@ class Trainer:
                                    ft=self._ft_record(epoch, step_in_epoch), **trees)
         if self.ctx.group is not None:
             dist.barrier(group=self.ctx.group)
+        self.ro.checkpoint(self.global_step, epoch=epoch, step_in_epoch=step_in_epoch)
         return path
+
+    def _preempt_agreed(self) -> bool:
+        """Did any rank's guard flag?  Every rank calls this at the same
+        step (a collective over the process group)."""
+        if self._agree is None:
+            self._agree = PreemptionAgreement(self.ctx.group, self.device)
+        return self._agree(self.preempt.triggered)
 
     def _build_data(self) -> None:
         """Datasets, samplers and loaders, as the JAX trainer builds them:
@@ -304,9 +339,10 @@ class Trainer:
                     stop_after: Optional[int] = None,
                     profiler: Optional[ProfileWindow] = None) -> int:
         """Steps ``start_step`` .. the end of ``epoch`` (or until
-        ``stop_after`` steps of it are complete), checkpointing every
-        ``--save-steps``; returns the number of steps of the epoch complete.
-        ``profiler`` (``fit``'s) opens and closes its step window."""
+        ``stop_after`` steps of it are complete, or an agreed preemption,
+        which sets ``preempted``), checkpointing every ``--save-steps``;
+        returns the number of steps of the epoch complete.  ``profiler``
+        (``fit``'s) opens and closes its step window."""
         lr = self.epoch_lr(epoch)
         meters = StepMeters(len(self.train_loader),
                             [("loss", "Loss", ":.4e"), ("acc1", "Acc@1", ":6.2f"),
@@ -319,16 +355,32 @@ class Trainer:
             return completed
         meters.restart_clock()
         batches = self.feeder(self.train_loader.iter_batches(start_step))
-        ro, n = self.ro, self.cfg.batch_size
+        ro, n, chaos = self.ro, self.cfg.batch_size, self.chaos
         for i in range(start_step, epoch_len):
             if profiler is not None:
                 profiler.step_begin(epoch, i)
+            # At print_freq cadence: the agreement is a collective every
+            # rank runs at the same step, off the per-step path.
+            if (self.preempt is not None and i % self.cfg.print_freq == 0
+                    and self._preempt_agreed()):
+                self.preempted = True
+                batches.close()
+                return completed
+            if chaos is not None:
+                chaos.on_step(self, i)
+            # data_wait holds the batch and the chaos batch hook.
             with ro.data_wait():
                 batch = next(batches, None)
+                if batch is not None and chaos is not None:
+                    batch = chaos.on_batch(i, batch)
             if batch is None:
                 break
+            ro.step_begin(self.global_step)
+            if chaos is not None:
+                chaos.on_collective(self, self.global_step)
             with scope("train_step"), ro.device_window():
                 metrics = self.train_step(batch, lr)
+            ro.step_end(self.global_step)
             with ro.host_sync():
                 dt = meters.update(metrics, n)
             self.step_times.append(dt)
@@ -383,7 +435,9 @@ class Trainer:
         """Train ``--start-epoch`` .. ``--epochs`` (the first from the resumed
         step), validating and checkpointing after each epoch; returns the
         best top-1 (or only validates under ``--evaluate``).  Drives the
-        profiler window, the telemetry sampler and, at the end, the last
+        profiler window, the telemetry sampler, the preemption guard (its
+        own on ``--preempt-signals`` unless one was passed; main thread
+        only), the flight recorder's death paths and, at the end, the last
         heartbeat and the goodput summary."""
         cfg = self.cfg
         if cfg.evaluate:
@@ -391,6 +445,14 @@ class Trainer:
         if cfg.telemetry_csv:
             # Registered on the hub, which stops it at the end.
             self.obs.register(TelemetrySampler(cfg.telemetry_csv, device=self.device))
+        signals = parse_signals(cfg.preempt_signals)
+        self.preempted = False
+        installed = (self.preempt is None
+                     and threading.current_thread() is threading.main_thread())
+        if installed:
+            self.preempt = PreemptionGuard(signals=signals).install()
+        # After the guard: the signal dumps the ring first, then chains to it.
+        self.ro.arm(signals)
         profiler = ProfileWindow(cfg.profile_dir, epochs=cfg.profile_epochs,
                                  steps=cfg.profile_steps, start_epoch=cfg.start_epoch,
                                  device=self.device)
@@ -398,16 +460,39 @@ class Trainer:
             for epoch in range(cfg.start_epoch, cfg.epochs):
                 self.obs.epoch_start()
                 profiler.epoch_begin(epoch)
-                self.train_epoch(epoch, self._resume_step if epoch == cfg.start_epoch else 0,
-                                 profiler=profiler)
+                completed = self.train_epoch(
+                    epoch, self._resume_step if epoch == cfg.start_epoch else 0,
+                    profiler=profiler)
                 if profiler.epoch_end():
                     self.log(f"=> wrote profiler trace to '{cfg.profile_dir}'")
+                if (not self.preempted and self.preempt is not None
+                        and self._preempt_agreed()):
+                    self.preempted = True  # landed between the last poll and here
+                if self.preempted:
+                    # A step-granular checkpoint: --resume continues at the
+                    # step reached (none done: the previous epoch's end).
+                    self.log(f"=> preemption signal: checkpointing at epoch {epoch} step "
+                             f"{completed} and exiting")
+                    self.obs.log_event("preempt", step=self.global_step, epoch=epoch,
+                                       step_in_epoch=completed)
+                    if completed > 0:
+                        self.save(epoch, completed)
+                    else:
+                        self.save(epoch - 1)
+                    break
                 acc1 = self.validate()
                 self.log(f"Epoch {epoch} took {self.obs.epoch_end():.1f}s")
                 is_best = acc1 > self.best_acc1
                 self.best_acc1 = max(acc1, self.best_acc1)
                 self.save(epoch, is_best=is_best)
+        except BaseException as e:
+            self.ro.dump_exception(e, self.global_step)
+            raise
         finally:
+            self.ro.disarm()   # before the guard: the signal dump chains to it
+            if installed:
+                self.preempt.uninstall()
+                self.preempt = None
             profiler.epoch_end()
             self.ro.close(self.global_step - 1)
         return self.best_acc1

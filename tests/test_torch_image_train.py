@@ -227,12 +227,12 @@ def test_recipe_trains_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,reason", [
-    (["--min-ranks", "2"], "ROADMAP.md item A11"), (["--flight-rec", "fr"], "ROADMAP.md item A12"),
+    (["--min-ranks", "2"], "ROADMAP.md item A11"), (["--mem-ledger", "m"], "ROADMAP.md item A12"),
     (["--rescale-lr", "linear"], "ROADMAP.md item A11"), (["--elastic"], "ROADMAP.md item A11"),
     (["--ckpt-backend", "orbax"], "orbax.checkpoint imports JAX"),
-    (["--hang-timeout", "5"], "ROADMAP.md item A12"),
+    (["--lowering-cache", "lc"], "ROADMAP.md item A12"),
     (["--ft-rollback-k", "5"], "ROADMAP.md item A11"),
-    (["--alerts", "default"], "ROADMAP.md item A12"),
+    (["--ft-check-every", "5"], "ROADMAP.md item A11"),
     (["--watch-recompiles"], "ROADMAP.md item A12"),
     (["--comm-ledger", "c.json"], "ROADMAP.md item A12")])
 def test_unported_flags_exit_naming_their_item(flag, reason):

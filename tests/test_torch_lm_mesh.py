@@ -101,8 +101,10 @@ from pytorch_distributed_tpu_torch.parallel.fsdp import apply_fsdp
 from pytorch_distributed_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from pytorch_distributed_tpu_torch.recipes import lm_generate, lm_pretrain
 from pytorch_distributed_tpu_torch.train import lm
+from pytorch_distributed_tpu_torch.ft.chaos import ChaosInjector
 from pytorch_distributed_tpu_torch.train.gradsync import momentum_bytes
 from pytorch_distributed_tpu_torch.train.optim import sgd
+from pytorch_distributed_tpu_torch.utils.preempt import PreemptionGuard
 
 inp = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
 ctx4 = initialize(device="cpu")
@@ -166,6 +168,33 @@ for name, kw in (("to_dp", {}), ("to_fsdp", {"fsdp": True})):
             trees["params"] = lm.lm_params_to_jax(model.state_dict())
             trees["momentum"] = lm.lm_params_to_jax(lm.momentum_state_dict(model, t.optimizer))
         res[name] = trees if mesh.is_primary else None
+
+# Preemption agreed over each pair at DP 2: the pair's rank 1 alone flags
+# at step 1; the agreement at step 2 (print_freq 2) stops both there.
+class FlagAt1(ChaosInjector):
+    def __init__(self, flags):
+        self.flags = flags
+
+    def on_step(self, trainer, step):
+        if step == 1 and self.flags:
+            trainer.preempt.trigger()
+
+
+mesh, model = model_on(2, 1, ctx2)
+t = lm.LMTrainer(model, ds, inp["batch"], lr=0.05, mesh=mesh, preempt=PreemptionGuard(),
+                 chaos=FlagAt1(rank % 2 == 1), checkpoint_dir=os.path.join(out, f"ck_pre{pair}"))
+t.fit(6, print_freq=2)
+res["preempt"] = {"steps": len(t.losses), "flagged": t.preempt.triggered}
+# The same across a model group: each pair at TP 2 (its rank 1 flags), and
+# the 2 x 2 mesh, where rank 1 flags and ranks 0 and 2 lie outside its data
+# group {1, 3}.
+for name, dp, ctx, flags in (("tp2", 1, ctx2, rank % 2 == 1), ("dp2_tp2", 2, ctx4, rank == 1)):
+    mesh, model = model_on(dp, 2, ctx)
+    ck = os.path.join(out, f"ck_{name}" + (str(pair) if dp == 1 else ""))
+    t = lm.LMTrainer(model, ds, inp["batch"], lr=0.05, mesh=mesh, preempt=PreemptionGuard(),
+                     chaos=FlagAt1(flags), checkpoint_dir=ck)
+    t.fit(6, print_freq=2)
+    res[f"preempt_{name}"] = {"steps": len(t.losses), "flagged": t.preempt.triggered}
 
 # tp_generate at TP 2 (ranks 2-3).
 if pair == 1:
@@ -444,6 +473,39 @@ def test_checkpoints_cross_meshes_both_ways(runs):
                 np.testing.assert_array_equal(a, b)
     assert sorted(os.listdir(runs["out"] / "ck_tp")) == [
         "checkpoint.msgpack", "checkpoint.msgpack.sha256"]
+
+
+def test_preemption_is_agreed_across_ranks(runs):
+    """One rank of each DP-2 pair flags its guard at step 1; the agreement
+    at step 2 (a MAX all-reduce over the pair's gloo group) stops both
+    ranks there, and the pair's rank 0 checkpoints step 2."""
+    from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
+    from pytorch_distributed_tpu_torch.train.checkpoint import CHECKPOINT_NAME, load_checkpoint
+
+    for r, rank in enumerate(runs["ranks"]):
+        assert rank["preempt"] == {"steps": 2, "flagged": r % 2 == 1}
+    for pair in (0, 1):
+        _, meta = load_checkpoint(str(runs["out"] / f"ck_pre{pair}" / CHECKPOINT_NAME),
+                                  TransformerLM(**CFG, device="cpu"))
+        assert (meta["ft"]["step"], meta["ft"]["global_step"]) == (2, 2)
+
+
+@pytest.mark.parametrize("name", ["tp2", "dp2_tp2"])
+def test_preemption_is_agreed_across_a_model_group(runs, name):
+    """One rank flags at step 1: at TP 2 each pair's rank 1, on the 2 x 2
+    mesh rank 1, whose data group {1, 3} leaves out ranks 0 and 2.  The
+    agreement at step 2 runs over the mesh's whole group, so every rank of
+    the mesh stops there and the mesh's rank 0 checkpoints step 2."""
+    from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
+    from pytorch_distributed_tpu_torch.train.checkpoint import CHECKPOINT_NAME, load_checkpoint
+
+    for r, rank in enumerate(runs["ranks"]):
+        flagged = r % 2 == 1 if name == "tp2" else r == 1
+        assert rank[f"preempt_{name}"] == {"steps": 2, "flagged": flagged}
+    for d in (["ck_tp20", "ck_tp21"] if name == "tp2" else ["ck_dp2_tp2"]):
+        _, meta = load_checkpoint(str(runs["out"] / d / CHECKPOINT_NAME),
+                                  TransformerLM(**CFG, device="cpu"))
+        assert (meta["ft"]["step"], meta["ft"]["global_step"]) == (2, 2)
 
 
 def test_tp_generate_emits_jax_tokens(runs):

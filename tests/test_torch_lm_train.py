@@ -244,7 +244,7 @@ def test_recipe_trains_on_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [["--ep", "2"], ["--sp", "2"], ["--remat", "--pp", "2"],
                                   ["--nan-guard"],
-                                  ["--flight-rec", "fr"], ["--elastic"]])
+                                  ["--ft-rollback-k", "5"], ["--elastic"]])
 def test_unported_flags_exit_nonzero(flag):
     with pytest.raises(SystemExit) as exc:
         lm_pretrain.main(TINY + flag)
