@@ -3,8 +3,9 @@
 their checkpoints, image training from an ImageFolder tree on disk, the
 data-parallel image recipes, the fused CE head, int8 weights,
 speculative decoding, the gradient-communication stack, the rest of the
-image zoo, LM training across ranks, the training metrics stream and the
-run's death paths and live plane, on one NVIDIA H100 and check them.
+image zoo, LM training across ranks, the training metrics stream, the
+run's death paths and live plane and the serving side's observability and
+fleet, on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -262,7 +263,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     behind, its watchdog (300 s) silent; the agreement stops both at step 4
     with a checkpoint there; rank 0's records hold the ``hang`` event and
     the ``hang`` rule's alert; ``tools/postmortem.py`` over the dumps and
-    heartbeats blames rank 1; K1-K3 once per layer per step on each rank.
+    heartbeats blames rank 1; K1-K3 once per layer per step on each rank;
+25. the serving side's observability and fleet, f32, TF32 off: (a) phase
+    12's engine cell through ``serving.serve_lm.serve``, plain (with
+    ``--metrics-jsonl``) and then with ``--req-trace --trace-sample 1.0``,
+    a ``--slo-ttft-ms`` ceiling over twice the plain run's largest TTFT,
+    ``--slo-kv-pct 100`` and the watchdog: the same tokens, 64
+    ``reqtrace`` records whose TTFT components sum to their TTFT within
+    5%, one ``serve_decode`` capture, no ``recompile`` and no ``alert``; a
+    planted second capture must book one ``recompile``, and a third run
+    under a ceiling of 0.8 x the traced run's TTFT p99 must book
+    ``ttft_p99`` alerts, its own p50 below the ceiling and its p99 above;
+    prints tokens/s with and without tracing and the SLO rules.  (b) two
+    ``tools/serve_fleet.py replica --engine --device cuda --req-trace``
+    processes at the LM's width and seed share the card behind the fleet
+    router (``tools/chaoskit.py::replica_kill``): 32 seeded requests,
+    then the same prompts with replica 1 SIGKILLed after the 4th
+    completion while its engine holds requests: none lost or completed
+    twice, the tokens of the unkilled run (identical unless the dense
+    top-2 gap at the first difference is under 1e-3), the killed run's
+    router TTFT p99 within 3x the unkilled run's + 250 ms, a
+    ``replica_down`` event and alert, every ``fleettrace`` record's
+    ``router_ttft_ms == router_wait_ms + redispatch_ms + hedge_wait_ms +
+    engine_ttft_ms`` exactly and its ``engine_ttft_ms`` equal to the
+    serving replica's own ``reqtrace`` TTFT; prints the time from the
+    kill to the first completion rerouted away from replica 1.  None of
+    K1-K5 may launch: the counters of this process are zeroed and read
+    around (a) and around (b), and each replica reports its own.
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
@@ -3174,6 +3201,199 @@ def live_phase(dev, card, cfg, medians23, steps=16, TB=4, TL=4096):
     return launched
 
 
+def _serve_args(lm, kv_blocks, extra=()):
+    """``serve_lm``'s flags for phase 12's engine cell at the width ``lm``."""
+    return serve_lm.build_parser().parse_args([
+        "--vocab-size", str(lm["vocab_size"]), "--d-model", str(lm["d_model"]),
+        "--n-heads", str(lm["n_heads"]), "--n-layers", str(lm["n_layers"]),
+        "--max-batch", "16", "--kv-blocks", str(kv_blocks), "--block-size", "16",
+        "--blocks-per-seq", "64", "--chunk-size", "128", "--max-new-tokens", "384",
+        "--seed", "0", "--device", "cuda", *extra])
+
+
+def _zero_launches():
+    for k in KERNEL_WRAPPERS:
+        k.launches = 0
+
+
+def serving_obs_phase(dev, card, lm, kv_blocks=385, n_requests=64, n_fleet=32):
+    """Phase 25: the serving side's observability and fleet at the width ``lm``.
+
+    (a) phase 12's engine cell through ``serve_lm.serve``, plain (with a
+    metrics JSONL, no rules, no watchdog) and then traced
+    (``--req-trace --trace-sample 1.0``, a TTFT ceiling over twice the
+    plain run's largest TTFT, ``--slo-kv-pct 100``, the watchdog on), with
+    two controls: a planted second capture of the decode graph, and a third
+    run of the same trace under a ceiling of 0.8 x the traced run's TTFT
+    p99.  (b) two ``tools/serve_fleet.py replica --engine --device cuda
+    --req-trace`` processes at the same width and seed share the card
+    behind the fleet router (``tools/chaoskit.py::replica_kill``): 32
+    seeded requests unkilled, then again with replica 1 SIGKILLed after the
+    4th completion, while its engine holds requests (all 32 are admitted
+    at once on the two engines' 32 slots, so their completions bunch up
+    at the end; the drill's plan point, the 15th, can come after replica 1
+    has drained).  The launch counters of this process are zeroed just
+    before (a) and (b) and read just after each; the replicas report their
+    own since they started."""
+    from pytorch_distributed_tpu_torch.obs import metrics, reqtrace
+    from pytorch_distributed_tpu_torch.tools import chaoskit
+
+    torch.cuda.empty_cache()
+    load_cfg = LoadConfig(n_requests=n_requests, rate_rps=200.0, profile="mixed",
+                          vocab_size=lm["vocab_size"], prompt_min=128, prompt_max=512,
+                          short_min=16, short_max=64, long_min=256, long_max=384,
+                          long_frac=0.2, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        # (a) plain, then traced with the SLO rules armed above the plain run
+        t0 = time.perf_counter()
+        _zero_launches()
+        plain, peng = serve_lm.serve(_serve_args(lm, kv_blocks, [
+            "--no-watchdog", "--metrics-jsonl", os.path.join(d, "plain.jsonl")]),
+            generate_load(load_cfg))
+        plain_tokens = {r.rid: list(r.generated) for r in peng.finished}
+        ceiling = 2e3 * max(peng.ttft_samples) + 100.0
+        del peng
+        torch.cuda.empty_cache()
+        jsonl = os.path.join(d, "traced.jsonl")
+        traced, teng = serve_lm.serve(_serve_args(lm, kv_blocks, [
+            "--req-trace", "--trace-sample", "1.0", "--slo-ttft-ms", str(ceiling),
+            "--slo-kv-pct", "100", "--metrics-jsonl", jsonl]), generate_load(load_cfg))
+        records = metrics.read_metrics(jsonl)
+        events = [r["ft_event"] for r in records if "ft_event" in r]
+        trs = reqtrace.trace_records(records)
+        recon = max(abs(sum(float(r[k]) for k in ("queue_wait_ms", "prefill_ms", "redo_wait_ms",
+                                                   "defrag_wait_ms", "other_wait_ms"))
+                        - float(r["ttft_ms"])) / float(r["ttft_ms"]) for r in trs)
+        summ = reqtrace.attribution_summary(trs)
+        overhead = 100.0 * (plain["tokens_per_s"] / traced["tokens_per_s"] - 1.0)
+        print(f"[obs-serve] plain (metrics JSONL only): {plain['tokens_per_s']} tokens/s, TTFT "
+              f"p99 {plain['ttft_p99_ms']} ms; traced (+ tracing, 2 SLO rules, watchdog): "
+              f"{traced['tokens_per_s']} tokens/s, TTFT p99 {traced['ttft_p99_ms']} ms; "
+              f"difference {overhead}% of tokens/s (one pair); preemptions "
+              f"{plain['preemptions']} / {traced['preemptions']}; card {card}")
+        print(f"[obs-serve] traced: {traced['traces_completed']} traces, "
+              f"{traced['trace_spans_dropped']} spans dropped, "
+              f"{traced['trace_violations']} violations of {ceiling} ms; largest "
+              f"|sum of TTFT components - TTFT| / TTFT {recon}; tail "
+              f"{reqtrace.format_tail_line(summ['tail'])}; watchdog captures "
+              f"{teng.watchdog.compiles}; events {sorted(set(events))}")
+        traced_tokens = {r.rid: list(r.generated) for r in teng.finished}
+        if traced_tokens != plain_tokens:
+            bad = [rid for rid in plain_tokens if traced_tokens.get(rid) != plain_tokens[rid]]
+            raise SystemExit(f"tracing changed the tokens of requests {bad}")
+        if traced["traces_completed"] != n_requests or len(trs) != n_requests:
+            raise SystemExit(f"{traced['traces_completed']} traces completed, {len(trs)} "
+                             f"reqtrace records, want {n_requests}")
+        if not recon <= 0.05:
+            raise SystemExit(f"a record's TTFT components miss its TTFT by {recon} (> 5%)")
+        if teng.watchdog.compiles != {"serve_decode": 1} or "recompile" in events:
+            raise SystemExit(f"the watchdog booked {teng.watchdog.compiles} and events "
+                             f"{events.count('recompile')} recompile(s); want one serve_decode "
+                             "capture and none")
+        if "alert" in events:
+            raise SystemExit(f"{events.count('alert')} alert(s) fired under a {ceiling} ms "
+                             "ceiling and --slo-kv-pct 100")
+        # control 1: a second capture of the same decode step
+        wd = teng.watchdog
+        ctl = os.path.join(d, "recapture.jsonl")
+        wd.obs = metrics.MetricsLogger(ctl, flush_every=1)
+        wd.install()
+        teng._capture_decode()
+        wd.uninstall()
+        wd.obs.close()
+        booked = [r for r in metrics.read_metrics(ctl) if r.get("ft_event") == "recompile"]
+        print(f"[obs-serve] control: a planted recapture booked {len(booked)} recompile "
+              f"event(s) {booked[:1]}")
+        if len(wd.anomalies) != 1 or len(booked) != 1:
+            raise SystemExit("the planted second capture did not book exactly one recompile")
+        del teng
+        torch.cuda.empty_cache()
+        # control 2: the same trace under a ceiling just below the traced p99
+        low = 0.8 * traced["ttft_p99_ms"]
+        low_jsonl = os.path.join(d, "low.jsonl")
+        lows, _ = serve_lm.serve(_serve_args(lm, kv_blocks, [
+            "--req-trace", "--slo-ttft-ms", str(low), "--no-watchdog",
+            "--metrics-jsonl", low_jsonl]), generate_load(load_cfg))
+        fired = [r for r in metrics.read_metrics(low_jsonl)
+                 if r.get("ft_event") == "alert" and r.get("rule") == "ttft_p99"]
+        print(f"[obs-serve] control: the trace under a {low} ms ceiling (0.8 x the traced p99 "
+              f"{traced['ttft_p99_ms']} ms; this run's TTFT p50 {lows['ttft_p50_ms']}, p99 "
+              f"{lows['ttft_p99_ms']} ms) booked {len(fired)} ttft_p99 alert(s)")
+        if not lows["ttft_p50_ms"] < low < lows["ttft_p99_ms"]:
+            raise SystemExit("the control's ceiling does not sit between its run's TTFT p50 "
+                             "and p99")
+        if not fired:
+            raise SystemExit("a ceiling below the TTFT p99 booked no ttft_p99 alert")
+        torch.cuda.empty_cache()
+        launched = [k.launches for k in KERNEL_WRAPPERS]
+        print(f"[obs-serve] kernel launches K1-K5 during phase 25(a): {launched}")
+        if any(launched):
+            raise SystemExit("the traced engine launched a kernel it should not reach")
+        print(f"[time] phase 25(a) took {time.perf_counter() - t0} s")
+
+        # (b) two engine replicas behind the router; replica 1 killed
+        t0 = time.perf_counter()
+        _zero_launches()
+        load = generate_load(LoadConfig(
+            n_requests=n_fleet, rate_rps=200.0, profile="mixed", vocab_size=lm["vocab_size"],
+            prompt_min=128, prompt_max=512, short_min=16, short_max=64, long_frac=0.0, seed=1))
+        prompts = [list(r.prompt) for _, r in load]
+        max_new = [r.max_new_tokens for _, r in load]
+        flags = ["--engine", "--device", "cuda", "--req-trace", "--vocab-size",
+                 str(lm["vocab_size"]), "--d-model", str(lm["d_model"]), "--n-heads",
+                 str(lm["n_heads"]), "--n-layers", str(lm["n_layers"]), "--max-batch", "16",
+                 "--kv-blocks", str(kv_blocks), "--block-size", "16", "--blocks-per-seq", "64",
+                 "--chunk-size", "128", "--max-new-tokens", "64"]
+        dense = {}
+
+        def same_tokens(i, base, kill):
+            """Phase 12's rule: identical, or the first difference sits where
+            the dense top-2 logit gap is under 1e-3."""
+            if base == kill:
+                return True
+            if not dense:
+                dense["m"] = TransformerLM(**lm, dtype=torch.float32, device=dev,
+                                           attn_impl="dense")
+                dense["m"].load_state_dict(init_lm_params(**lm, seed=0, device=dev))
+            j = next((j for j, (a, b) in enumerate(zip(base, kill)) if a != b),
+                     min(len(base), len(kill)))
+            seq = torch.tensor([prompts[i] + base], device=dev)
+            with torch.no_grad():
+                gap = _top2_gaps(dense["m"](seq)[0, len(prompts[i]) - 1:-1])[j]
+            print(f"[obs-serve] request {i} differs after the kill at token {j}; dense top-2 "
+                  f"gap there {gap}")
+            return len(base) == len(kill) and gap < 1e-3
+
+        ok, rep = chaoskit.replica_kill(os.path.join(d, "fleet"), seed=0, prompts=prompts,
+                                        max_new=max_new, flags=flags, boot_timeout_s=300.0,
+                                        deadline_s=120.0, probe_timeout_s=5.0,
+                                        kill_after=n_fleet // 8,
+                                        same_tokens=same_tokens)
+        dense.clear()
+        launched = [k.launches for k in KERNEL_WRAPPERS]
+        print(f"[obs-serve] fleet: {n_fleet} requests over 2 engine replicas on one card, kill "
+              f"after completion #{rep['kill_after']}: runs {rep['base_wall_s']} s / "
+              f"{rep['kill_wall_s']} s, router TTFT p99 {rep['base_ttft_p99_ms']} / "
+              f"{rep['kill_ttft_p99_ms']} ms (ceiling 3 x the first + 250 ms), "
+              f"{rep['retries']} retries, attempts sent to replicas 0 and 1 "
+              f"{rep['dispatched']}, {rep['replica_down_events']} replica_down, lost "
+              f"{rep['lost']}, double-completed {rep['double_completed']}, fleettrace identity "
+              f"error {rep['decomp_err_ms_max']} ms, engine TTFT echo error "
+              f"{rep['engine_echo_err_ms_max']} ms; kill to the first completion rerouted away "
+              f"from replica 1: {rep['kill_to_reroute_ms']} ms; card {card}")
+        print(f"[obs-serve] kernel launches K1-K5 during phase 25(b): this process {launched}, "
+              f"replicas {rep['replica_launches']}")
+        if not ok:
+            raise SystemExit("the replica-kill drill failed (FAIL lines above)")
+        reps = rep["replica_launches"]
+        if any(launched) or sorted(reps) != [0, 1] or any(
+                r is None or len(r) != 5 or any(r.values()) for r in reps.values()):
+            raise SystemExit("the fleet launched a kernel it should not reach, or a replica "
+                             "did not report its launches")
+        print(f"[time] phase 25(b) took {time.perf_counter() - t0} s")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3783,6 +4003,11 @@ def main() -> int:
     k1_live, k2_live, k3_live, k4_live, k5_live = live_phase(dev, card, cfg, medians23)
     print(f"[time] phase 24 took {time.perf_counter() - t0} s")
 
+    # 25. the serving side's observability and fleet
+    t0 = time.perf_counter()
+    serving_obs_phase(dev, card, cfg)
+    print(f"[time] phase 25 took {time.perf_counter() - t0} s")
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
@@ -3820,7 +4045,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-24 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-25 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

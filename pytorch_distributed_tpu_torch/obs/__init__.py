@@ -1,6 +1,6 @@
 """Observability of the PyTorch port (mirrors pytorch_distributed_tpu/obs).
 
-Ported (ROADMAP.md item A12, slices 1 and 2):
+Ported (ROADMAP.md item A12, slices 1 to 3):
 
 - ``metrics``   — ``MetricsLogger``: one structured JSONL record per step,
   with lazy device-scalar conversion and sink registration (the epoch
@@ -21,119 +21,60 @@ Ported (ROADMAP.md item A12, slices 1 and 2):
 - ``export``    — the per-rank Prometheus exporter (``--metrics-port``);
   ``tools/obs_live.py`` scrapes it.
 - ``alerts``    — the declarative alert rules and engine (``--alerts``).
+- ``reqtrace``  — the serving engine's per-request span recorder and its
+  TTFT attribution (``serve_lm --req-trace``); ``tools/obs_trace.py``
+  reads it.
+- ``watchdog``  — the serving engine's recapture watchdog: a CUDA-graph
+  capture is the port's compile event.
 
 The files, fields and names are the JAX package's, so its readers (and
 ``scripts/obs_report.py``) fold the port's runs.  Not ported yet: the
-serving engine's ``trace`` and ``watchdog`` hooks, ``reqtrace`` and the
-``scripts/obs_report.py`` twin (A12's third slice), and ``comms``,
-``memory``, ``watchdog`` and the rest of ``timeline`` (``--comm-ledger``,
-``--mem-ledger``, ``--lowering-cache``, ``--watch-recompiles``, the XPlane
-parser), which read XLA programs and wait for their torch meaning with A13.
+``scripts/obs_report.py`` twin and ``timeline``'s request-trace merge, and
+``comms``, ``memory`` and the rest of ``timeline`` (``--comm-ledger``,
+``--mem-ledger``, ``--lowering-cache``, the XPlane parser), which read XLA
+programs and wait for their torch meaning with A13; the trainers'
+``--watch-recompiles`` exits (their steps run eagerly: nothing is captured).
+
+The names below load their module on first use: ``metrics``, ``heartbeat``,
+``export``, ``alerts`` and ``reqtrace`` import no torch, so the fleet's
+processes (``serving/router.py``, ``tools/serve_fleet.py``,
+``tools/obs_trace.py``) import them without loading torch.
 """
 
-from pytorch_distributed_tpu_torch.obs.alerts import (
-    AlertEngine,
-    AlertRuleError,
-    Rule,
-    alerts_data,
-    dead_ranks_from_events,
-    default_rules,
-    evaluate_stream,
-    load_rules,
-    summarize_alerts,
-)
-from pytorch_distributed_tpu_torch.obs.export import (
-    MetricsExporter,
-    parse_prometheus,
-    sample_value,
-    scrape,
-)
-from pytorch_distributed_tpu_torch.obs.flightrec import (
-    FlightRecorder,
-    FlightSignalDump,
-    HangWatchdog,
-    attach_to_metrics,
-    dump_path,
-    find_dumps,
-)
-from pytorch_distributed_tpu_torch.obs.flops import (
-    MFUReporter,
-    StepCost,
-    counted_step_flops,
-    device_peak_flops,
-    image_step_cost,
-    lm_step_cost,
-    lm_step_cost_for,
-)
-from pytorch_distributed_tpu_torch.obs.goodput import (
-    GoodputTracker,
-    compute_goodput,
-    summarize_goodput,
-)
-from pytorch_distributed_tpu_torch.obs.heartbeat import (
-    HeartbeatWriter,
-    find_stragglers,
-    fleet_rollup,
-    read_heartbeats,
-    sample_process_memory,
-)
-from pytorch_distributed_tpu_torch.obs.metrics import MetricsLogger, read_metrics
-from pytorch_distributed_tpu_torch.obs.stepattr import StepAttr
-from pytorch_distributed_tpu_torch.obs.timeline import (
-    clock_offsets_from_heartbeats,
-    read_heartbeat_steps,
-)
-from pytorch_distributed_tpu_torch.obs.trace import (
-    ProfileWindow,
-    annotate,
-    capture,
-    parse_span,
-    scope,
-)
+import importlib
 
-__all__ = [
-    "MetricsLogger",
-    "read_metrics",
-    "HeartbeatWriter",
-    "read_heartbeats",
-    "find_stragglers",
-    "fleet_rollup",
-    "sample_process_memory",
-    "scope",
-    "annotate",
-    "capture",
-    "parse_span",
-    "ProfileWindow",
-    "StepCost",
-    "MFUReporter",
-    "image_step_cost",
-    "lm_step_cost",
-    "lm_step_cost_for",
-    "counted_step_flops",
-    "device_peak_flops",
-    "GoodputTracker",
-    "compute_goodput",
-    "summarize_goodput",
-    "StepAttr",
-    "FlightRecorder",
-    "FlightSignalDump",
-    "HangWatchdog",
-    "attach_to_metrics",
-    "dump_path",
-    "find_dumps",
-    "read_heartbeat_steps",
-    "clock_offsets_from_heartbeats",
-    "MetricsExporter",
-    "parse_prometheus",
-    "sample_value",
-    "scrape",
-    "AlertEngine",
-    "AlertRuleError",
-    "Rule",
-    "load_rules",
-    "default_rules",
-    "evaluate_stream",
-    "alerts_data",
-    "dead_ranks_from_events",
-    "summarize_alerts",
-]
+_EXPORTS = {
+    "MetricsLogger": "metrics", "read_metrics": "metrics",
+    "HeartbeatWriter": "heartbeat", "read_heartbeats": "heartbeat",
+    "find_stragglers": "heartbeat", "fleet_rollup": "heartbeat",
+    "sample_process_memory": "heartbeat",
+    "scope": "trace", "annotate": "trace", "capture": "trace",
+    "parse_span": "trace", "ProfileWindow": "trace",
+    "StepCost": "flops", "MFUReporter": "flops", "image_step_cost": "flops",
+    "lm_step_cost": "flops", "lm_step_cost_for": "flops",
+    "counted_step_flops": "flops", "device_peak_flops": "flops",
+    "GoodputTracker": "goodput", "compute_goodput": "goodput",
+    "summarize_goodput": "goodput",
+    "StepAttr": "stepattr",
+    "FlightRecorder": "flightrec", "FlightSignalDump": "flightrec",
+    "HangWatchdog": "flightrec", "attach_to_metrics": "flightrec",
+    "dump_path": "flightrec", "find_dumps": "flightrec",
+    "read_heartbeat_steps": "timeline", "clock_offsets_from_heartbeats": "timeline",
+    "MetricsExporter": "export", "parse_prometheus": "export",
+    "sample_value": "export", "scrape": "export",
+    "AlertEngine": "alerts", "AlertRuleError": "alerts", "Rule": "alerts",
+    "load_rules": "alerts", "default_rules": "alerts", "evaluate_stream": "alerts",
+    "alerts_data": "alerts", "dead_ranks_from_events": "alerts",
+    "summarize_alerts": "alerts",
+    "ReqTracer": "reqtrace", "TraceContext": "reqtrace",
+    "RecompileWatchdog": "watchdog",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{mod}"), name)

@@ -28,12 +28,21 @@ graph in place of the decode step, so a round is still one replay and one
 host sync.  Outputs equal the target's own greedy stream, whatever the
 draft.
 
-Not ported yet, each refused with the ROADMAP.md item that will port it:
-the ``watchdog``, ``chaos`` and ``trace`` hooks (A11, A12).
+Three hooks sit where the JAX engine has them, each guarded by ``is not
+None`` so the untraced path pays one branch: ``trace``
+(``obs/reqtrace.py::ReqTracer``: submit, admit, prefill chunk marks and
+their redo after a preemption, decode, emit, preempt, defrag, completion,
+its gauges in each step record and its records drained to ``reqtrace``
+events), ``watchdog`` (``obs/watchdog.py``: the decode graph's capture,
+the port's compile event, runs inside ``watch("serve_decode")``; replays
+and the eager prefill capture nothing, so they are not watched) and
+``chaos`` (``ft/chaos.py``: ``on_step(engine, step)`` at the top of every
+step).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
@@ -54,14 +63,6 @@ from pytorch_distributed_tpu_torch.serving.scheduler import Request, Scheduler
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
 MODES = ("continuous", "static")
-
-# Engine features of the JAX package not ported yet, each with the ROADMAP
-# item (queue A) that will port it.
-NOT_PORTED = {
-    "watchdog": "A12 (observability: the recompile watchdog)",
-    "chaos": "A11 (fault tolerance: chaos injection)",
-    "trace": "A12 (observability: per-request tracing)",
-}
 
 
 def _pct_ms(samples, q: float) -> Optional[float]:
@@ -111,12 +112,6 @@ class ServingEngine:
                              "gamma > 0 requires temperature <= 0")
         if gamma > 0 and draft_params is None:
             raise ValueError("gamma > 0 requires draft_params")
-        asked = {"watchdog": watchdog is not None, "chaos": chaos is not None,
-                 "trace": trace is not None}
-        for name, on in asked.items():
-            if on:
-                raise ValueError(f"{name} is not ported to the PyTorch engine yet: "
-                                 f"ROADMAP.md item {NOT_PORTED[name]}")
         self.device = resolve_device(device)
         self.mode = mode
         self.gamma = int(gamma)
@@ -127,6 +122,12 @@ class ServingEngine:
         self.top_p = float(top_p)
         self.defrag_threshold_pct = float(defrag_threshold_pct)
         self.obs = obs
+        self.watchdog = watchdog
+        self.chaos = chaos
+        # per-request tracer: every hook below is guarded by ``is not
+        # None``; traced hooks are tuple appends and clock reads.
+        self.trace = trace
+        self._step = 0
         self.stream = stream
         self._time_fn = time_fn
         self._sleep_fn = sleep_fn
@@ -176,7 +177,6 @@ class ServingEngine:
         self.itl_samples: deque = deque(maxlen=2048)
         self.total_tokens = 0
         self.finished: List[Request] = []
-        self._step = 0
         self._t0: Optional[float] = None
 
     # ---------------------------------------------------------- decode step
@@ -218,19 +218,26 @@ class ServingEngine:
                            torch.where(j == n_acc, corr, torch.full_like(pfull, -1)))
 
     def _capture_decode(self) -> None:
-        """Warm the step up on a side stream, then capture it once.  The
-        buffers hold zeros here, so the warm-up writes only the null block.
+        """Warm the step up on a side stream, then capture it, inside the
+        watchdog's ``serve_decode`` scope.  The buffers hold zeros at the
+        engine's own capture, so the warm-up writes only the null block.
         A failed capture raises: the engine never falls back to eager."""
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._decode_step()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        self._graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._graph):
-            self._logits, self._next = self._decode_step()
-        self.graph_captures += 1
+        watch = (contextlib.nullcontext() if self.watchdog is None
+                 else self.watchdog.watch("serve_decode", step=self._step))
+        with watch:
+            t0 = time.perf_counter()
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self._decode_step()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._graph):
+                self._logits, self._next = self._decode_step()
+            self.graph_captures += 1
+            if self.watchdog is not None:
+                self.watchdog.on_capture(time.perf_counter() - t0)
 
     def _run_decode_step(self) -> None:
         """Replay the captured step (eager on the CPU); the results land in
@@ -263,7 +270,10 @@ class ServingEngine:
             raise ValueError(f"prompt of {P} tokens does not fit a {cap}-token "
                              f"block table (gamma={self.gamma})")
         req.max_new_tokens = min(req.max_new_tokens, limit)
-        self.sched.submit(req, now=self._now())
+        now = self._now()   # one stamp: tracer submit_t == arrival_time
+        if self.trace is not None:
+            req.trace_ctx = self.trace.on_submit(req.rid, now, priority=req.priority)
+        self.sched.submit(req, now=now)
 
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
@@ -274,10 +284,11 @@ class ServingEngine:
         C = self.chunk_size
         table = torch.from_numpy(self.pool.table([req.rid])).to(self.device, torch.int64)
         chunk = np.zeros((1, C), np.int64)
+        t_marks = [self._now()] if self.trace is not None else None
         for lo in range(0, P, C):
             # Lanes past the prompt carry token 0 at positions past the
-            # committed window: they write garbage that decode overwrites
-            # before the mask exposes it.
+            # committed window: they write garbage that decode
+            # overwrites before the mask exposes it.
             valid = min(C, P - lo)
             chunk[0, :valid] = req.prompt[lo:lo + valid]
             chunk[0, valid:] = 0
@@ -286,10 +297,18 @@ class ServingEngine:
             logits = self.model(tokens, self.pk, self.pv, table, pos)
             if self.draft is not None:
                 self.draft(tokens, self.dpk, self.dpv, table, pos)
+            if t_marks is not None:
+                t_marks.append(self._now())   # chunk dispatch boundary
         last = logits[0, valid - 1]
         tok = torch.argmax(last) if self.temperature <= 0 else self._sample(last)
         seed = int(tok)                  # the prefill's one host sync
         now = self._now()
+        if t_marks is not None:
+            # the host sync folds into the last chunk's span; the prefill's
+            # end mark is the first-token stamp below, so the tracer's TTFT
+            # equals the engine's sample exactly.
+            t_marks[-1] = now
+            self.trace.on_prefill(req.rid, t_marks, redo=req.first_token_time is not None)
         if req.first_token_time is None:
             req.first_token_time = now
             self.ttft_samples.append(now - req.arrival_time)
@@ -305,6 +324,8 @@ class ServingEngine:
               first: bool = False) -> None:
         req.generated.append(token)
         self.total_tokens += 1
+        if self.trace is not None:
+            self.trace.on_emit(req.rid, now, first)
         if self.stream is not None:
             self.stream(req.rid, token, "first" if first else "token")
 
@@ -313,6 +334,9 @@ class ServingEngine:
         self.pool.free(req.rid)
         self._offsets[slot] = 0
         self._last[slot] = 0
+        if self.trace is not None:
+            self.trace.on_complete(req.rid, req.finish_time, tokens=len(req.generated),
+                                   preemptions=req.preemptions)
         self.finished.append(req)
 
     # ------------------------------------------------------------ preemption
@@ -322,6 +346,8 @@ class ServingEngine:
         self._offsets[slot] = 0
         self._last[slot] = 0
         self.sched.preempt(slot)
+        if self.trace is not None:
+            self.trace.on_preempt(req.rid, self._now())
         if self.obs is not None:
             self.obs.log_event("serve_preempt", step=self._step, rid=req.rid)
 
@@ -345,6 +371,8 @@ class ServingEngine:
         """One engine iteration; returns tokens emitted."""
         t_start = self._now()
         self._step += 1
+        if self.chaos is not None:
+            self.chaos.on_step(self, self._step)
 
         # admission: continuous fills free lanes anytime; static (the
         # naive baseline) only opens the door once the whole wave drains.
@@ -363,6 +391,8 @@ class ServingEngine:
                 return True
 
             for slot, req in self.sched.admit(can_admit):
+                if self.trace is not None:
+                    self.trace.on_admit(req.rid, self._now())
                 self._prefill(slot, req)
 
         emitted = 0
@@ -384,7 +414,10 @@ class ServingEngine:
                 emitted += self._decode(live)
 
         if self.pool.fragmentation_pct() > self.defrag_threshold_pct:
+            t_df = self._now() if self.trace is not None else 0.0
             self._defrag()
+            if self.trace is not None:
+                self.trace.on_defrag(t_df, self._now())
 
         if emitted or active:
             self._log_metrics(self._now() - t_start, emitted)
@@ -392,6 +425,7 @@ class ServingEngine:
 
     @torch.no_grad()
     def _decode(self, live) -> int:
+        t_dec = self._now() if self.trace is not None else 0.0
         sids = [None] * self.max_batch
         for slot, req in live:
             sids[slot] = req.rid
@@ -407,6 +441,8 @@ class ServingEngine:
         for slot, req in live:
             toks = (arr[slot][arr[slot] >= 0].tolist()
                     if arr.ndim == 2 else [int(arr[slot])])
+            if self.trace is not None:
+                self.trace.on_decode(req.rid, t_dec, now, len(toks))
             gap = now - self._last_emit[slot]
             for t in toks:
                 self._emit(slot, req, t, now)
@@ -456,7 +492,18 @@ class ServingEngine:
                 v = _pct_ms(samples, q)
                 if v is not None:
                     extra[f"{name}_p{int(q * 100)}_ms"] = v
+        if self.trace is not None:
+            extra.update(self.trace.step_fields())
         self.obs.log_step(self._step, step_time, n_items=emitted, extra=extra)
+        self._drain_traces()
+
+    def _drain_traces(self) -> None:
+        """Lazy flush: book completed trace records as ``reqtrace``
+        ft_events, one per request, once per step — never per token."""
+        if self.trace is None or self.obs is None:
+            return
+        for ev in self.trace.drain():
+            self.obs.log_event("reqtrace", step=self._step, **ev)
 
     # ------------------------------------------------------------------- run
     def run(self, load: List, max_steps: int = 100000) -> Dict[str, Any]:
@@ -475,6 +522,9 @@ class ServingEngine:
                 self._sleep_fn(max(min(pending[i][0] - self._now(), 1e-3), 0.0))
                 continue
             self.step()
+        # final drain: a request that completes on the run's last step (or
+        # a step whose metrics record was skipped) must still land.
+        self._drain_traces()
         return self.summary()
 
     def summary(self) -> Dict[str, Any]:

@@ -18,9 +18,19 @@ the run summary as JSON.  The flags are the JAX script's plus ``--device``
 ``--checkpoint``, as the JAX script does); ``--gamma G`` decodes greedily
 by speculation with a seeded random draft of ``--draft-d-model`` and
 ``--draft-layers``, one captured round per iteration.
-``--slo-ttft-ms``, ``--slo-kv-pct`` and ``--req-trace`` are parsed but not
-ported yet: each exits with the ROADMAP item that will port it.
-``--no-watchdog`` is accepted and does nothing.
+
+``--slo-ttft-ms`` / ``--slo-kv-pct`` arm live ``ttft_p99`` /
+``kv_occupancy`` alert rules (obs/alerts.py) over the run's own stream;
+breaches are booked as ``alert`` ft_events in the JSONL.  ``--req-trace``
+arms the per-request span recorder (obs/reqtrace.py): every request's
+TTFT/e2e decomposes into queue-wait / prefill / preempt-redo / defrag
+components, booked as ``reqtrace`` ft_events and read by
+``tools/obs_trace.py``; ``--trace-sample`` is the span retention rate of
+requests inside the SLO.  The recapture watchdog (obs/watchdog.py) watches
+the decode graph's capture unless ``--no-watchdog``.
+
+    python -m pytorch_distributed_tpu_torch.serving.serve_lm --device cpu \
+        --req-trace --trace-sample 1.0 --slo-ttft-ms 500 --metrics-jsonl /tmp/serve.jsonl
 
 Exit status 0 iff every request completed.
 """
@@ -32,20 +42,15 @@ import json
 import sys
 
 from pytorch_distributed_tpu_torch.models.quant import quantize_state_dict
+from pytorch_distributed_tpu_torch.obs.alerts import AlertEngine, Rule
 from pytorch_distributed_tpu_torch.obs.metrics import MetricsLogger
+from pytorch_distributed_tpu_torch.obs.reqtrace import ReqTracer
+from pytorch_distributed_tpu_torch.obs.watchdog import RecompileWatchdog
 from pytorch_distributed_tpu_torch.serving.engine import ServingEngine, init_lm_params
 from pytorch_distributed_tpu_torch.serving.loadgen import LoadConfig, generate_load
 from pytorch_distributed_tpu_torch.train.checkpoint import read_payload
 from pytorch_distributed_tpu_torch.utils.convert import lm_state_dict_from_jax
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
-
-# Flags parsed for the JAX script's surface, each with the ROADMAP item
-# (queue A) that will port it, and the value that leaves it off.
-NOT_PORTED = {
-    "slo_ttft_ms": ("A12 (observability: live SLO alert rules)", None),
-    "slo_kv_pct": ("A12 (observability: live SLO alert rules)", None),
-    "req_trace": ("A12 (observability: per-request tracing)", False),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -105,19 +110,20 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--metrics-jsonl", default=None,
                    help="serving SLO metrics JSONL, one record per step")
     o.add_argument("--slo-ttft-ms", type=float, default=None,
-                   help="arm a live ttft_p99 alert rule (not ported yet)")
+                   help="arm a live ttft_p99 alert rule at this ceiling")
     o.add_argument("--slo-kv-pct", type=float, default=None,
-                   help="arm a live kv_occupancy alert rule (not ported yet)")
+                   help="arm a live kv_occupancy alert rule at this pct")
     o.add_argument("--req-trace", action="store_true", dest="req_trace",
-                   help="per-request span tracing (not ported yet)")
+                   help="per-request span tracing (obs/reqtrace.py): "
+                        "TTFT/e2e critical-path attribution booked as "
+                        "reqtrace ft_events; analyze with tools/obs_trace.py")
     o.add_argument("--trace-sample", type=float, default=0.05,
                    dest="trace_sample",
-                   help="span retention rate under --req-trace")
+                   help="span retention rate for non-violating requests "
+                        "(SLO violators always keep their spans)")
     o.add_argument("--no-watchdog", action="store_true",
-                   help="accepted for the JAX script's surface and ignored: "
-                        "the port has no recompile watchdog, because its "
-                        "decode step is captured once as a CUDA graph by "
-                        "construction")
+                   help="disable the recapture watchdog around the decode "
+                        "graph's capture")
     o.add_argument("--summary-json", default=None,
                    help="write the run summary dict to this path")
     return ap
@@ -144,13 +150,11 @@ def load_checkpoint_params(path: str, device="cuda"):
             int(d_model), n_layers)
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    for dest, (item, off) in NOT_PORTED.items():
-        if getattr(args, dest) != off:
-            raise SystemExit(f"--{dest.replace('_', '-')} is not ported to the "
-                             f"PyTorch package yet: ROADMAP.md item {item}")
-
+def serve(args, load=None):
+    """Build the engine ``args`` describe, drive its seeded load (or
+    ``load``, a list of ``(arrival_s, Request)``) to the end and return
+    ``(summary, engine)``; the engine keeps its watchdog
+    (``engine.watchdog``) and tracer (``engine.trace``)."""
     if args.checkpoint:
         (params, args.vocab_size, args.d_model,
          args.n_layers) = load_checkpoint_params(args.checkpoint, args.device)
@@ -163,35 +167,68 @@ def main(argv=None) -> int:
     if args.gamma > 0:
         draft = init_lm_params(args.vocab_size, args.draft_d_model, args.n_heads,
                                args.draft_layers, seed=args.seed + 1, device=args.device)
-    obs = MetricsLogger(args.metrics_jsonl, flush_every=1)
-    eng = ServingEngine(
-        params, vocab_size=args.vocab_size, d_model=args.d_model,
-        n_heads=args.n_heads, n_layers=args.n_layers,
-        max_batch=args.max_batch, kv_blocks=args.kv_blocks,
-        block_size=args.block_size, blocks_per_seq=args.blocks_per_seq,
-        chunk_size=args.chunk_size, max_new_tokens=args.max_new_tokens,
-        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-        quant=args.quant, gamma=args.gamma, draft_params=draft,
-        policy=args.policy, mode=args.mode,
-        defrag_threshold_pct=args.defrag_threshold_pct,
-        obs=obs, seed=args.seed, device=args.device)
-    del params, draft
 
-    load = generate_load(LoadConfig(
-        n_requests=args.requests, rate_rps=args.rate_rps,
-        profile=args.profile, vocab_size=args.vocab_size, seed=args.seed))
-    for _, req in load:
-        req.max_new_tokens = min(req.max_new_tokens, args.max_new_tokens)
+    obs = MetricsLogger(args.metrics_jsonl, flush_every=1)
+    rules = []
+    if args.slo_ttft_ms is not None:
+        rules.append(Rule("ttft_p99", "ttft_p99", "page",
+                          {"max_ms": float(args.slo_ttft_ms)}))
+    if args.slo_kv_pct is not None:
+        rules.append(Rule("kv_occupancy", "kv_occupancy", "warn",
+                          {"max_pct": float(args.slo_kv_pct)}))
+    if rules:
+        alert_engine = AlertEngine(rules, emit=lambda **f: obs.log_event("alert", **f))
+        obs.register(alert_engine.observe)
+
+    wd = None
+    if not args.no_watchdog:
+        wd = RecompileWatchdog(obs=obs)
+        wd.install()
+
+    tracer = None
+    if args.req_trace:
+        tracer = ReqTracer(slo_ms=args.slo_ttft_ms, sample=args.trace_sample)
 
     try:
+        eng = ServingEngine(
+            params, vocab_size=args.vocab_size, d_model=args.d_model,
+            n_heads=args.n_heads, n_layers=args.n_layers,
+            max_batch=args.max_batch, kv_blocks=args.kv_blocks,
+            block_size=args.block_size, blocks_per_seq=args.blocks_per_seq,
+            chunk_size=args.chunk_size, max_new_tokens=args.max_new_tokens,
+            temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+            quant=args.quant, gamma=args.gamma, draft_params=draft,
+            policy=args.policy, mode=args.mode,
+            defrag_threshold_pct=args.defrag_threshold_pct,
+            obs=obs, watchdog=wd, trace=tracer, seed=args.seed, device=args.device)
+        del params, draft
+
+        if load is None:
+            load = generate_load(LoadConfig(
+                n_requests=args.requests, rate_rps=args.rate_rps,
+                profile=args.profile, vocab_size=args.vocab_size, seed=args.seed))
+        for _, req in load:
+            req.max_new_tokens = min(req.max_new_tokens, args.max_new_tokens)
         summary = eng.run(load)
     finally:
+        if wd is not None:
+            wd.uninstall()
         obs.close()
 
-    summary["recompile_anomalies"] = None
+    summary["recompile_anomalies"] = len(wd.anomalies) if wd else None
+    if tracer is not None:
+        summary["traces_completed"] = tracer.completed
+        summary["trace_violations"] = tracer.violations
+        summary["trace_spans_dropped"] = tracer.spans_dropped
     summary["decode_graph_captures"] = eng.graph_captures
     summary["decode_graph_replays"] = eng.graph_replays
     summary["decode_iterations"] = eng.decode_iterations
+    return summary, eng
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    summary, _ = serve(args)
     print(json.dumps(summary, indent=2, sort_keys=True))
     if args.summary_json:
         with open(args.summary_json, "w") as f:

@@ -84,14 +84,6 @@ def test_quant_and_gamma_serve_every_request(capsys):
     assert spec["steps"] <= plain["steps"]
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--slo-ttft-ms", "40"], "A12"),
-    (["--slo-kv-pct", "90"], "A12"), (["--req-trace"], "A12")])
-def test_not_ported_flags_exit_naming_their_item(flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md item {item}"):
-        serve_lm.main(TOY + flags)
-
-
 def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
     assert serve_lm.build_parser().parse_args([]).device == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -484,14 +484,6 @@ def test_engine_logs_slo_fields_and_events(weights):
     assert events.count("serve_defrag") == summary["defrags"] > 0
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(watchdog=object()), "A12"), (dict(chaos=object()), "A11"),
-    (dict(trace=object()), "A12")])
-def test_not_ported_features_raise_naming_their_item(weights, kw, item):
-    with pytest.raises(ValueError, match=f"ROADMAP.md item {item}"):
-        _engine(ServingEngine, weights[1], **kw)
-
-
 # ------------------------------------------- engine: int8 and speculation
 
 def test_int8_engine_matches_jax_int8_engine(weights):
