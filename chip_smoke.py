@@ -4,8 +4,9 @@ their checkpoints, image training from an ImageFolder tree on disk, the
 data-parallel image recipes, the fused CE head, int8 weights,
 speculative decoding, the gradient-communication stack, the rest of the
 image zoo, LM training across ranks, the training metrics stream, the
-run's death paths and live plane and the serving side's observability and
-fleet, on one NVIDIA H100 and check them.
+run's death paths and live plane, the serving side's observability and
+fleet and the divergence guard's rollback with its report, on one NVIDIA
+H100 and check them.
 
     python3 chip_smoke.py
 
@@ -290,6 +291,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     kill to the first completion rerouted away from replica 1.  None of
     K1-K5 may launch: the counters of this process are zeroed and read
     around (a) and around (b), and each replica reports its own.
+
+26. the divergence guard's rollback (``--nan-guard --ft-rollback-k 2
+    --ft-check-every 3 --save-steps 2``) through both trainers.  (a) the LM
+    cell (``lm_pretrain``, L 4096, B 4, bf16, f32 weights), 16 steps with
+    ``LRSpikeAt`` at step 4: every flagged step leaves the parameters,
+    buffers and momentum bitwise as they were, at least one rollback, an
+    LR scale under 1, a finite last loss and finite weights, ``skip`` and
+    ``rollback`` events in the JSONL; the same spike without the guard must
+    end with non-finite weights; then 10 clean steps without and with the
+    guard, their median step printed.  (b) ResNet-50 ``--fused-convbn``
+    b64 224x224 bf16 through ``tpu_native``, 8 steps, ``NaNBatchAt`` at
+    steps 1 (a skip) and 3-4 (a rollback): the poisoned steps leave weights,
+    momentum and BN statistics bitwise as they were, one rollback, finite
+    at the end.  Each run launches K1-K3 12 times a step (the LM) or K4 33
+    and K5 13 times a step (the image net), skipped steps included.  (c)
+    ``tools/obs_report.py`` folds (a)'s and (b)'s JSONL: its ``ft`` section
+    counts the guards' skips and rollbacks and its goodput books them as
+    ``nan_skip`` and ``rollback_discard``; it reports phase 23's LM and
+    image files (metrics, heartbeats, telemetry) and prints ``--diff`` of
+    the clean LM runs without vs with the guard (no limit).
 
 The line before the last lists each kernel with its launches, error and
 times; the last line is the device record.  Needs one CUDA card; exits
@@ -2770,7 +2791,7 @@ def _obs_records(what, d, trainer, steps, peak, card):
     return rows, summary
 
 
-def obs_phase(dev, card, cfg, steps=16, TB=4, TL=4096):
+def obs_phase(dev, card, cfg, steps=16, TB=4, TL=4096, keep=None):
     """Phase 23: ``tpu_native -a resnet50 --fused-convbn`` (b256 224x224 bf16,
     synthetic) and ``lm_pretrain`` at the LM's full width (L 4096, B 4,
     bf16), ``steps`` steps each, first without the slice's flags, then with
@@ -2791,7 +2812,9 @@ def obs_phase(dev, card, cfg, steps=16, TB=4, TL=4096):
     synthetic batches on the host and ~207 ms once they were done (the last
     three; PERF.md §5), so both medians are printed.  Returns the (K1, K2, K3, K4, K5)
     launches of its runs and, per run, the (median, last-3 median) step without the flags
-    in ms."""
+    in ms.  ``keep``: a directory the flagged runs' JSONL, heartbeats and telemetry CSV are
+    copied to (``{image,lm}_m.jsonl``, ``{image,lm}_hb``, ``image_t.csv``) for phase 26's
+    report."""
     from pytorch_distributed_tpu_torch.obs import flops
 
     peak = flops.device_peak_flops(dev)
@@ -2846,6 +2869,11 @@ def obs_phase(dev, card, cfg, steps=16, TB=4, TL=4096):
                 if "=> goodput " not in out:
                     raise SystemExit(f"phase 23 {what}: no goodput summary printed")
                 rows, summary = _obs_records(what, d, trainer, steps, peak, card)
+                if keep is not None:
+                    shutil.copy(os.path.join(d, "m.jsonl"), os.path.join(keep, f"{what}_m.jsonl"))
+                    shutil.copytree(os.path.join(d, "hb"), os.path.join(keep, f"{what}_hb"))
+                    if what == "image":
+                        shutil.copy(os.path.join(d, "t.csv"), os.path.join(keep, "image_t.csv"))
                 if what == "image":
                     share = summary["shares_pct"]["compute"]
                     total = torch.cuda.get_device_properties(dev).total_memory
@@ -3392,6 +3420,240 @@ def serving_obs_phase(dev, card, lm, kv_blocks=385, n_requests=64, n_fleet=32):
                              "did not report its launches")
         print(f"[time] phase 25(b) took {time.perf_counter() - t0} s")
     torch.cuda.empty_cache()
+
+
+# Phase 26: the run's recovery and its report (ROADMAP A11's rollback policy,
+# A12's obs_report twin).  The LM spike at step RB_SPIKE_STEP follows the
+# snapshot refreshed at step 4 (the save cadence 2), and its step ends on an
+# odd count, so no save boundary snapshots the spiked weights; the next steps
+# read non-finite and the drain at the next boundary rolls back.  The image
+# trainers (JAX's and the port's) read their LR once an epoch, so
+# ``LRSpikeAt`` never reaches their step: two poisoned batches in a row force
+# the image rollback instead.
+RB_SPIKE_STEP, RB_K, RB_CHECK, RB_SAVE = 4, 2, 3, 2
+RB_IMAGE_POISON = (1, 3, 4)
+
+
+def _bytes_of(tensors):
+    return [None if t is None else t.detach().reshape(-1).view(torch.uint8).clone()
+            for t in tensors]
+
+
+class _GateCheck:
+    """Wraps a trainer's step function: copies the train state (parameters,
+    buffers, momentum, ``GradSync`` state) before each step and, when the
+    step's ``nonfinite`` flag is set, records whether the state came out
+    bitwise as it went in.  Reads the flag every step (a synchronize): the
+    checking runs only, never the timed ones.  Attributes (``count``,
+    ``comm``) are the wrapped step's."""
+
+    def __init__(self, trainer, attr):
+        object.__setattr__(self, "_fn", getattr(trainer, attr))
+        object.__setattr__(self, "_trainer", trainer)
+        object.__setattr__(self, "flagged", {})
+        object.__setattr__(self, "_i", 0)
+        setattr(trainer, attr, self)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+    def __call__(self, batch, lr):
+        from pytorch_distributed_tpu_torch.ft.divergence import _state_tensors
+
+        t = self._trainer
+        state = lambda: _state_tensors(t.model, t.optimizer, t.comm)  # noqa: E731
+        before = _bytes_of(state())
+        metrics = self._fn(batch, lr)
+        i = self._i
+        object.__setattr__(self, "_i", i + 1)
+        if float(metrics["nonfinite"]) > 0:
+            after = _bytes_of(state())
+            self.flagged[i] = all((a is None and b is None) or (a is not None and b is not None
+                                                                and torch.equal(a, b))
+                                  for a, b in zip(before, after))
+        return metrics
+
+
+def _chaos_hook(*injectors, check=None):
+    """A ``before_fit`` hook: the chaos schedule on the built trainer, and
+    optionally a ``_GateCheck`` around its step (``check``: the attribute)."""
+    from pytorch_distributed_tpu_torch.ft.chaos import ChaosSchedule
+
+    made = {}
+
+    def hook(trainer):
+        trainer.chaos = ChaosSchedule(*injectors) if injectors else None
+        if check is not None:
+            made["check"] = _GateCheck(trainer, check)
+    return hook, made
+
+
+def _finite_state(trainer):
+    from pytorch_distributed_tpu_torch.ft.divergence import _state_tensors
+
+    return all(bool(torch.isfinite(t).all()) for t in
+               _state_tensors(trainer.model, trainer.optimizer, trainer.comm)
+               if t is not None and t.is_floating_point())
+
+
+def _ft_fold(what, path, guard):
+    """The report twin's JSON on one run's JSONL against its guard."""
+    from pytorch_distributed_tpu_torch.tools import obs_report
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_report.main(["--metrics-jsonl", path, "--format", "json"])
+    js = json.loads(buf.getvalue())
+    ev, gp = js["ft_events"], js["goodput"]
+    got = (ev.get("skip", {}).get("steps"), ev.get("rollback", {}).get("count", 0),
+           gp["counts"]["nan_skip"], gp["counts"]["rollback_discard"])
+    want = (guard.skipped, guard.rollbacks, len(guard.skipped), guard.rollbacks)
+    print(f"[recovery] (c) report of {what}: rc {rc}; ft events {ev}; goodput counts "
+          f"{gp['counts']}, badput {gp['badput_s']} s, goodput {gp['goodput_pct']} %")
+    if rc != 0 or got != want or not gp["badput_s"]["nan_skip"] > 0:
+        raise SystemExit(f"phase 26 (c) {what}: report (skips, rollbacks, nan_skip, "
+                         f"rollback_discard) {got}, guard {want}; rc {rc}; badput "
+                         f"{gp['badput_s']}")
+
+
+def recovery_phase(dev, card, cfg, obs_files, steps=16, clean_steps=10, TB=4, TL=4096,
+                   img_batch=64, img_steps=8):
+    """Phase 26.  Returns the (K1, K2, K3, K4, K5) launches of its runs."""
+    from pytorch_distributed_tpu_torch.ft.chaos import LRSpikeAt, NaNBatchAt
+    from pytorch_distributed_tpu_torch.tools import obs_report
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    launched = [0] * 5
+    lm = ["--vocab", str(cfg["vocab_size"]), "--d-model", str(cfg["d_model"]),
+          "--n-heads", str(cfg["n_heads"]), "--n-layers", str(cfg["n_layers"]),
+          "--seq-len", str(TL), "-b", str(TB), "--precision", "bf16", "--no-eval",
+          "-p", "100", "--device", "cuda"]
+    guard = ["--nan-guard", "--ft-rollback-k", str(RB_K), "--ft-check-every", str(RB_CHECK)]
+
+    def run(what, fn, argv, hook, n, want):
+        for k in KERNEL_WRAPPERS:
+            k.launches = 0
+        trainer, out, wall = _obs_run(what, fn, argv, before_fit=hook)
+        counts = [k.launches for k in KERNEL_WRAPPERS]
+        for j, c in enumerate(counts):
+            launched[j] += c
+        if counts != want or len(trainer.losses) != n:
+            raise SystemExit(f"phase 26 {what}: launches K1-K5 {counts}, expected {want}; "
+                             f"{len(trainer.losses)} steps of {n}")
+        return trainer, out, wall
+
+    try:
+        # (a) the LM cell: the spike with the guard, then without it.
+        per = cfg["n_layers"] * steps
+        jl = os.path.join(root, "lm_guard.jsonl")
+        hook, made = _chaos_hook(LRSpikeAt(RB_SPIKE_STEP, 1e30), check="step_fn")
+        t, out, wall = run("(a) LM guard", lm_pretrain.run,
+                           lm + guard + ["--steps", str(steps), "--save-steps", str(RB_SAVE),
+                                         "--metrics-jsonl", jl], hook, steps, [per] * 3 + [0, 0])
+        g, flagged = t.ft_guard, made["check"].flagged
+        losses = [float(x) for x in t.losses]
+        records = [r for r in obs_report.load_metrics(jl)[0] if "ft_event" in r]
+        events = [r["ft_event"] for r in records]
+        restored = [r["restored_step"] for r in records if r["ft_event"] == "rollback"]
+        print(f"[recovery] (a) LM with the guard: skipped {g.skipped}, rollbacks {g.rollbacks}, "
+              f"restored to the snapshots of steps {restored}, lr scale {g.lr_scale}; "
+              f"flagged steps bitwise unchanged {flagged}; losses {losses}; events {events}; "
+              f"run {wall} s")
+        ok = (g.rollbacks >= 1 and g.lr_scale < 1.0 and sorted(flagged) == g.skipped
+              and all(flagged.values()) and math.isfinite(losses[-1]) and _finite_state(t)
+              and {"skip", "rollback"} <= set(events)
+              and "=> divergence rollback at step" in out)
+        guard_a = g
+        del t, made
+        torch.cuda.empty_cache()
+        if not ok:
+            raise SystemExit("phase 26 (a): the guarded LM run failed its checks (above)")
+        hook, _ = _chaos_hook(LRSpikeAt(RB_SPIKE_STEP, 1e30))
+        t, _, wall = run("(a) LM control", lm_pretrain.run, lm + ["--steps", str(steps)], hook,
+                         steps, [per] * 3 + [0, 0])
+        finite = _finite_state(t)
+        print(f"[recovery] (a) control, the spike without the guard: losses "
+              f"{[float(x) for x in t.losses]}; state finite {finite}; run {wall} s")
+        del t
+        torch.cuda.empty_cache()
+        if finite:
+            raise SystemExit("phase 26 (a) control: the unguarded spike left finite weights")
+        # The guard's cost over the same clean steps.
+        clean = {}
+        for on in (False, True):
+            path = os.path.join(root, f"lm_clean_{int(on)}.jsonl")
+            t, _, _ = run(f"(a) LM clean {'with' if on else 'without'} the guard",
+                          lm_pretrain.run, lm + (guard if on else []) + [
+                              "--steps", str(clean_steps), "--save-steps", str(RB_SAVE),
+                              "--metrics-jsonl", path], None, clean_steps,
+                          [cfg["n_layers"] * clean_steps] * 3 + [0, 0])
+            clean[on] = (statistics.median(t.step_times[1:]) * 1e3, path,
+                         [x * 1e3 for x in t.step_times])
+            del t
+            torch.cuda.empty_cache()
+        (off, _, off_all), (on, _, on_all) = clean[False], clean[True]
+        print(f"[recovery] (a) LM median step (steps 2-{clean_steps}) with the guard {on} ms vs "
+              f"without {off} ms: {100 * (on - off) / off} % (steps {on_all} vs {off_all}; the "
+              f"guarded run also copies its state to host memory every {RB_SAVE} steps); "
+              f"card {card}")
+
+        # (b) the image cell.
+        ji = os.path.join(root, "image_guard.jsonl")
+        image = ["-a", "resnet50", "--synthetic", "--fused-convbn", "-b", str(img_batch),
+                 "--image-size", "224", "--synthetic-length", str(img_batch * img_steps),
+                 "--epochs", "1", "--precision", "bf16", "--seed", "0", "-p", "100",
+                 "--device", "cuda", "--checkpoint-dir", os.path.join(root, "ck"),
+                 "--epoch-csv", os.path.join(root, "e.csv"), "--save-steps", str(RB_SAVE),
+                 "--metrics-jsonl", ji] + guard
+        hook, made = _chaos_hook(NaNBatchAt(RB_IMAGE_POISON, keys=("images",)),
+                                 check="train_step")
+        t, out, wall = run("(b) image guard", tpu_native.run, image, hook, img_steps,
+                           [0, 0, 0, 33 * img_steps, 13 * img_steps])
+        g, flagged = t.ft_guard, made["check"].flagged
+        losses = [float(x) for x in t.losses]
+        print(f"[recovery] (b) ResNet-50 b{img_batch} with the guard: skipped {g.skipped}, "
+              f"rollbacks {g.rollbacks}, lr scale {g.lr_scale}; poisoned steps bitwise "
+              f"unchanged (weights, momentum, BN statistics) {flagged}; losses {losses}; "
+              f"run {wall} s")
+        ok = (g.skipped == list(RB_IMAGE_POISON) and g.rollbacks == 1
+              and sorted(flagged) == g.skipped and all(flagged.values())
+              and math.isfinite(losses[-1]) and _finite_state(t))
+        guard_b = g
+        del t, made
+        torch.cuda.empty_cache()
+        if not ok:
+            raise SystemExit("phase 26 (b): the guarded image run failed its checks (above)")
+
+        # (c) the report twin folds (a), (b) and phase 23's files.
+        _ft_fold("(a)", jl, guard_a)
+        _ft_fold("(b)", ji, guard_b)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = obs_report.main(["--metrics-jsonl", os.path.join(obs_files, "lm_m.jsonl"),
+                                  "--hb-dir", os.path.join(obs_files, "lm_hb"),
+                                  "--telemetry-csv", os.path.join(obs_files, "image_t.csv")])
+            rc_img = obs_report.main(["--metrics-jsonl",
+                                      os.path.join(obs_files, "image_m.jsonl"),
+                                      "--hb-dir", os.path.join(obs_files, "image_hb")])
+        text = buf.getvalue()
+        print(f"[recovery] (c) report of phase 23's LM and image runs: rc {rc}, {rc_img}")
+        for line in text.splitlines():
+            print(f"[recovery] (c) | {line}")
+        if rc != 0 or rc_img != 0 or "== goodput ==" not in text:
+            raise SystemExit(f"phase 26 (c): phase 23's report exited {rc}, {rc_img}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = obs_report.main(["--diff", clean[False][1], clean[True][1]])
+        for line in buf.getvalue().splitlines():
+            print(f"[recovery] (c) diff | {line}")
+        print(f"[recovery] (c) --diff of the clean LM runs, without vs with the guard: exit "
+              f"{rc} (no limit); card {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launched
 
 
 def main() -> int:
@@ -3995,7 +4257,9 @@ def main() -> int:
 
     # 23. the training metrics stream through both trainers
     t0 = time.perf_counter()
-    (k1_obs, k2_obs, k3_obs, k4_obs, k5_obs), medians23 = obs_phase(dev, card, cfg)
+    obs_files = tempfile.mkdtemp(prefix="chip_smoke_obs_files_")
+    (k1_obs, k2_obs, k3_obs, k4_obs, k5_obs), medians23 = obs_phase(dev, card, cfg,
+                                                                    keep=obs_files)
     print(f"[time] phase 23 took {time.perf_counter() - t0} s")
 
     # 24. the death paths and the live plane through both trainers
@@ -4008,23 +4272,31 @@ def main() -> int:
     serving_obs_phase(dev, card, cfg)
     print(f"[time] phase 25 took {time.perf_counter() - t0} s")
 
+    # 26. the divergence guard's rollback through both trainers, and its report
+    t0 = time.perf_counter()
+    try:
+        k1_ft, k2_ft, k3_ft, k4_ft, k5_ft = recovery_phase(dev, card, cfg, obs_files)
+    finally:
+        shutil.rmtree(obs_files, ignore_errors=True)
+    print(f"[time] phase 26 took {time.perf_counter() - t0} s")
+
     path = results["path"]
     kernels = [dict(
         name="flash_attention_fwd", route="cuda",
         source="pytorch_distributed_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="pytorch_distributed_tpu/ops/flash_attention.py:37",
         launches=(serve_launches + train_launches[0] + k1 + k1_gen + k1_ce + k1_int8 + k1_a9
-                  + k1_mesh + k1_obs + k1_live),
+                  + k1_mesh + k1_obs + k1_live + k1_ft),
         max_abs_err=path["err"],
         ms=path["ms"], plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
         bound_by=path["bound_by"], library_ms=path["library_ms"])]
     bpath = bwd["path"]
     for name, key, line, n in (("flash_attention_bwd_dq", "dq", 185,
                                 train_launches[1] + k2 + k2_ce + k2_a9 + k2_mesh + k2_obs
-                                + k2_live),
+                                + k2_live + k2_ft),
                                ("flash_attention_bwd_dkv", "dkv", 214,
                                 train_launches[2] + k3 + k3_ce + k3_a9 + k3_mesh + k3_obs
-                                + k3_live)):
+                                + k3_live + k3_ft)):
         kernels.append(dict(
             name=name, route="cuda",
             source="pytorch_distributed_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -4034,10 +4306,10 @@ def main() -> int:
             bound_by=bpath[key]["bound_by"], library_ms=bpath["library_ms"]))
     for name, key, line, n in (("fused_dgrad_wgrad", "k4_path", 122,
                                 image_launches[0] + k4 + k4_data + k4_dp + k4_a9 + k4_obs
-                                + k4_live),
+                                + k4_live + k4_ft),
                                ("fused_dgrad_wgrad_3x3", "k5_path", 210,
                                 image_launches[1] + k5 + k5_data + k5_dp + k5_a9 + k5_obs
-                                + k5_live)):
+                                + k5_live + k5_ft)):
         kp = conv[key]
         kernels.append(dict(
             name=name, route="cuda",
@@ -4045,7 +4317,7 @@ def main() -> int:
             replaces=f"pytorch_distributed_tpu/ops/fused_conv_bn.py:{line}",
             launches=n, max_abs_err=kp["err"], ms=kp["ms"], plain_ms=kp["plain_ms"],
             bound_ms=kp["bound_ms"], bound_by=kp["bound_by"], library_ms=kp["library_ms"]))
-    print(f"[time] phases 1-25 took {time.perf_counter() - t_start} s")
+    print(f"[time] phases 1-26 took {time.perf_counter() - t_start} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

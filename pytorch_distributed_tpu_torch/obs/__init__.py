@@ -28,11 +28,12 @@ Ported (ROADMAP.md item A12, slices 1 to 3):
   capture is the port's compile event.
 
 The files, fields and names are the JAX package's, so its readers (and
-``scripts/obs_report.py``) fold the port's runs.  Not ported yet: the
-``scripts/obs_report.py`` twin and ``timeline``'s request-trace merge, and
-``comms``, ``memory`` and the rest of ``timeline`` (``--comm-ledger``,
-``--mem-ledger``, ``--lowering-cache``, the XPlane parser), which read XLA
-programs and wait for their torch meaning with A13; the trainers'
+``scripts/obs_report.py``) fold the port's runs, as does its twin
+``tools/obs_report.py``.  Not ported yet: ``comms``, ``memory`` and the
+rest of ``timeline`` (``--comm-ledger``, ``--mem-ledger``,
+``--lowering-cache``, the XPlane parser and the request-trace merge into
+its per-rank timelines), which read XLA programs and wait for their torch
+meaning with A13; the trainers'
 ``--watch-recompiles`` exits (their steps run eagerly: nothing is captured).
 
 The names below load their module on first use: ``metrics``, ``heartbeat``,

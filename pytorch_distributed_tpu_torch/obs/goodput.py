@@ -2,8 +2,10 @@
 
 A copy of ``pytorch_distributed_tpu/obs/goodput.py`` (stdlib only).  Folds
 one metrics-JSONL stream — per-step records plus ``ft_event`` records —
-into a badput taxonomy (the port's trainers book no fault-tolerance events
-yet, ROADMAP.md item A11, so on its runs only ``stall`` can be non-zero):
+into a badput taxonomy (the port's trainers book ``skip`` and ``rollback``
+under ``--nan-guard`` and ``preempt`` on a preemption; elastic membership,
+ROADMAP.md item A11, and the recompile watch, A12, are not ported, so
+``remesh`` and ``recompile`` stay zero on its runs):
 
 - ``nan_skip``          steps whose update the divergence guard gated off
                         (the step ran, the arithmetic was wasted);

@@ -54,9 +54,13 @@ the JAX recipe's help.  As in the JAX recipe, a ``PreemptionGuard`` on
 ``--preempt-signals`` (SIGTERM by default) is installed on the main thread
 around ``fit``: on the signal the ranks agree to stop at a step boundary,
 checkpoint the steps done (with ``--checkpoint-dir``) and return.
+``--nan-guard`` with ``--ft-rollback-k``, ``--ft-check-every`` and
+``--ft-lr-backoff`` is the divergence guard of ``ft/divergence.py``: a
+non-finite step is skipped inside the step, and K consecutive ones roll
+back to the last-good snapshot (the start, then every ``--save-steps``)
+with the LR backed off.
 Every flag of a layer not ported yet (sequence and expert parallelism,
-the pipeline and its remat, the divergence policy and elastic membership,
-the ledgers and the recompile watch) is parsed, and a value other than its
+the pipeline and its remat, elastic membership, the ledgers and the recompile watch) is parsed, and a value other than its
 default exits naming the ROADMAP item that will port it.
 """
 
@@ -83,15 +87,14 @@ from pytorch_distributed_tpu_torch.train.lm import (
 from pytorch_distributed_tpu_torch.utils.preempt import PreemptionGuard, parse_signals
 
 _PARALLEL = "A10 (model parallelism: --sp, --ep, --pp)"
-_FT = "A11 (fault tolerance: --nan-guard, --elastic)"
+_FT = "A11 (fault tolerance: --elastic)"
 _OBS = "A12 (observability: ledgers, recompile watch)"
 # Flags parsed for the JAX recipe's surface but not ported, each with the
 # ROADMAP item (queue A) that will port it.
 NOT_PORTED = {
     **dict.fromkeys(("sp", "sp_impl", "ep", "moe_top_k", "pp",
                      "microbatches", "schedule", "pp_virtual"), _PARALLEL),
-    **dict.fromkeys(("nan_guard", "ft_rollback_k", "ft_check_every",
-                     "ft_lr_backoff", "elastic", "min_ranks", "rescale_lr"), _FT),
+    **dict.fromkeys(("elastic", "min_ranks", "rescale_lr"), _FT),
     **dict.fromkeys(("watch_recompiles", "comm_ledger", "mem_ledger",
                      "lowering_cache"), _OBS),
 }
@@ -200,13 +203,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "and-exit at the next step boundary (default "
                         "'term'; add 'int' for interactive Ctrl-C runs)")
     p.add_argument("--nan-guard", action="store_true", dest="nan_guard",
-                   help="not ported yet")
-    p.add_argument("--ft-rollback-k", type=int, default=3, dest="ft_rollback_k",
-                   metavar="K", help="not ported yet")
+                   help="divergence guard: skip non-finite steps in the step; "
+                        "after --ft-rollback-k consecutive bad steps, roll "
+                        "back to the last-good state with an LR backoff")
+    p.add_argument("--ft-rollback-k", type=int, default=3,
+                   dest="ft_rollback_k", metavar="K",
+                   help="consecutive non-finite steps before rollback")
     p.add_argument("--ft-check-every", type=int, default=10,
-                   dest="ft_check_every", metavar="N", help="not ported yet")
+                   dest="ft_check_every", metavar="N",
+                   help="drain the guard's buffered flags every N steps "
+                        "(one amortized host sync)")
     p.add_argument("--ft-lr-backoff", type=float, default=0.5,
-                   dest="ft_lr_backoff", metavar="F", help="not ported yet")
+                   dest="ft_lr_backoff", metavar="F",
+                   help="LR multiplier applied at each rollback")
     p.add_argument("--elastic", action="store_true", dest="elastic",
                    help="not ported yet")
     p.add_argument("--min-ranks", type=int, default=1, dest="min_ranks",
@@ -443,7 +452,10 @@ def _run(args, ctx, before_fit=None) -> LMTrainer:
                                 hb_interval_s=args.hb_interval_s, mfu=args.mfu,
                                 goodput=args.goodput, step_attr=args.step_attr, preempt=guard,
                                 flight_rec=args.flight_rec, hang_timeout=args.hang_timeout,
-                                metrics_port=args.metrics_port, alerts=args.alerts)
+                                metrics_port=args.metrics_port, alerts=args.alerts,
+                                nan_guard=args.nan_guard, ft_rollback_k=args.ft_rollback_k,
+                                ft_check_every=args.ft_check_every,
+                                ft_lr_backoff=args.ft_lr_backoff)
         except NotImplementedError as e:  # an orbax checkpoint directory
             raise SystemExit(str(e)) from e
         trainer.ctx = ctx

@@ -6,8 +6,10 @@ plus ``--device`` (default ``cuda``).
 
 Every flag is parsed.  ``check_ported`` exits naming the ROADMAP item that
 will port a flag whose value differs from its default and whose layer is
-not ported yet: the divergence rollback policy and elastic membership
-(A11) and the ledgers and the recompile watch (A12).  The metrics stream is
+not ported yet: elastic membership (A11) and the ledgers and the recompile
+watch (A12).  The divergence guard is ported: ``--nan-guard``,
+``--ft-rollback-k``, ``--ft-check-every`` and ``--ft-lr-backoff``, with the
+JAX package's help.  The metrics stream is
 ported: ``--metrics-jsonl``, ``--hb-dir`` / ``--hb-interval``, ``--mfu``,
 ``--goodput``, ``--step-attr``, ``--telemetry-csv`` and ``--profile-dir`` /
 ``--profile-epochs`` / ``--profile-steps``; so are the death paths and the
@@ -32,13 +34,12 @@ from typing import Optional
 from pytorch_distributed_tpu_torch import models
 from pytorch_distributed_tpu_torch.train.checkpoint import ORBAX_MESSAGE
 
-_FT = "A11 (fault tolerance: rollback policy, --elastic)"
+_FT = "A11 (fault tolerance: --elastic)"
 _OBS = "A12 (observability: ledgers, recompile watch)"
 
 # dest -> the ROADMAP item that will port it, for flags not ported yet.
 NOT_PORTED = {
-    **dict.fromkeys(("ft_rollback_k", "ft_check_every", "ft_lr_backoff",
-                     "elastic", "min_ranks", "rescale_lr"), _FT),
+    **dict.fromkeys(("elastic", "min_ranks", "rescale_lr"), _FT),
     **dict.fromkeys(("watch_recompiles", "comm_ledger", "mem_ledger", "lowering_cache"), _OBS),
 }
 
@@ -211,15 +212,17 @@ def build_parser(description: str = "ImageNet Training on one CUDA card"
     add("--save-steps", default=d.save_steps, type=int, dest="save_steps", metavar="N",
         help="also checkpoint every N steps inside an epoch (0 = epoch ends only)")
     add("--nan-guard", action="store_true", dest="nan_guard",
-        help="skip (inside the step, with no host sync) the update of a batch whose "
-        "loss or gradient norm is not finite: parameters, momentum and BN statistics "
-        "are restored")
+        help="divergence guard: detect non-finite loss/grad-norm inside the step, skip "
+        "the bad batch's update, and after --ft-rollback-k consecutive bad steps roll "
+        "back to the last-good state with an LR backoff")
     add("--ft-rollback-k", default=d.ft_rollback_k, type=int, dest="ft_rollback_k",
-        metavar="K", help=_NOT_PORTED_HELP)
+        metavar="K", help="consecutive non-finite steps before the guard rolls back "
+        "(default 3)")
     add("--ft-check-every", default=d.ft_check_every, type=int, dest="ft_check_every",
-        metavar="N", help=_NOT_PORTED_HELP)
+        metavar="N", help="drain the guard's buffered non-finite flags every N steps — "
+        "one amortized host sync, never per step (default 10)")
     add("--ft-lr-backoff", default=d.ft_lr_backoff, type=float, dest="ft_lr_backoff",
-        metavar="F", help=_NOT_PORTED_HELP)
+        metavar="F", help="multiply the LR by this factor at each rollback (default 0.5)")
     add("--preempt-signals", default=d.preempt_signals, type=str, dest="preempt_signals",
         metavar="SIGS", help="comma-separated signals the preemption guard traps "
         "(default 'term'; add 'int' for interactive Ctrl-C runs, e.g. 'term,int')")

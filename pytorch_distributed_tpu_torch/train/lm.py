@@ -49,9 +49,15 @@ reached) and ``chaos`` (``ft/chaos.py`` hooks), in the JAX loop's order.
 ``prefetch`` token batches are built on the host and copied to the card by
 a feeder thread (``data/loader.py::DeviceFeeder``), the JAX ``AsyncFeeder``.
 
+The divergence guard (``nan_guard``, ``ft_rollback_k``, ``ft_check_every``,
+``ft_lr_backoff``; ``ft/divergence.py``): the step gates a non-finite
+update on the device, the guard drains the flags every ``check_every``
+steps, and ``ft_rollback_k`` consecutive flags restore the last-good host
+snapshot (refreshed at start and every ``save_steps``) with the LR scaled
+by the backoff, which checkpoints carry as ``lr_scale``.
+
 Not ported yet (ROADMAP.md queue A): sequence, expert and pipeline
-parallelism, the divergence rollback policy, elastic membership and the
-ledgers of A12/A13.
+parallelism, elastic membership and the ledgers of A12/A13.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.data.loader import DeviceFeeder
+from pytorch_distributed_tpu_torch.ft.divergence import DivergenceGuard, StateKeeper
 from pytorch_distributed_tpu_torch.obs.flops import lm_step_cost_for
 from pytorch_distributed_tpu_torch.obs.trace import scope
 from pytorch_distributed_tpu_torch.ops import qcomm
@@ -283,7 +290,8 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
                        log_norms: bool = False, fused_ce_chunks: int = 0,
                        fused_ce_mode: str = "auto", grad_compress: Optional[str] = None,
                        zero: str = "none", overlap: str = "none",
-                       bucket_mb: float = overlap_lib.DEFAULT_BUCKET_MB, mesh=None):
+                       bucket_mb: float = overlap_lib.DEFAULT_BUCKET_MB, mesh=None,
+                       guard_nonfinite: bool = False):
     """``step(tokens, lr) -> metrics``; ``tokens`` are this rank's rows of
     the global batch (all of it without a mesh).
 
@@ -309,6 +317,15 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
     pure-DP step.  ``step.comm``
     holds its state.  Metrics are device scalars: ``loss`` and ``acc`` in
     percent.
+
+    ``guard_nonfinite`` (the JAX ``nonfinite_flag`` / ``gate_update``):
+    the flag is 1 when the loss or the global gradient norm is not finite,
+    both reduced over the mesh, so every rank decides alike; a flagged
+    step leaves the parameters, the momentum and the ``comm`` state
+    (residual, ZeRO rows) bitwise as they were, restored on the device by
+    ``torch.where`` with no host sync, and ``metrics["nonfinite"]`` carries
+    the flag.  ``step.count`` counts the steps taken, flagged ones too (the
+    JAX ``state.step``).
     """
     mesh = _mesh_of(model, mesh)
     zero_mode = zero_lib.resolve_zero(zero)
@@ -385,7 +402,16 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
         with scope("lm_forward"):
             return lm_loss(model, toks, fused_ce_chunks, ce_mode, data_group)
 
+    def momentum_buffers() -> List[Optional[torch.Tensor]]:
+        return [optimizer.state.get(p, {}).get("momentum_buffer") for p in params]
+
     def step(tokens: torch.Tensor, lr: float) -> Dict[str, torch.Tensor]:
+        if guard_nonfinite:
+            old_params = [p.detach().clone() for p in params]
+            old_moms = [torch.zeros_like(p) if m is None else m.clone()
+                        for p, m in zip(params, momentum_buffers())]
+            old_comm = [t.clone() for t in comm.state_tensors()] if comm is not None else []
+        step.count += 1
         optimizer.zero_grad(set_to_none=True)
         if comm is not None:
             comm.arm(accum_steps == 1)
@@ -411,7 +437,7 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
         acc = tp_lib.all_reduce_sum(acc, data_group) / dp
         for group in optimizer.param_groups:
             group["lr"] = lr
-        want_norm = log_norms or clip_grad_norm > 0.0
+        want_norm = log_norms or clip_grad_norm > 0.0 or guard_nonfinite
         if wus and not quantized:
             # ZeRO: this rank's rows of the averaged gradient (a
             # reduce-scatter), their norm over the mesh, the clip, then the
@@ -459,6 +485,17 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
             else:
                 optimizer.step()
         metrics = {"loss": loss, "acc": acc * 100.0}
+        if guard_nonfinite:
+            bad = ~(torch.isfinite(loss) & torch.isfinite(gnorm))
+            with torch.no_grad():
+                for new, old in zip([p.data for p in params] + momentum_buffers(),
+                                    old_params + old_moms):
+                    if new is not None:
+                        new.copy_(torch.where(bad, old, new))
+                if comm is not None:
+                    comm.set_state_tensors([torch.where(bad, old, new) for new, old in
+                                            zip(comm.state_tensors(), old_comm)])
+            metrics["nonfinite"] = bad.float()
         if log_norms:
             metrics["grad_norm"] = gnorm
             with torch.no_grad():
@@ -466,6 +503,7 @@ def make_lm_train_step(model, optimizer: torch.optim.Optimizer,
         return metrics
 
     step.comm = comm
+    step.count = 0
     return step
 
 
@@ -515,6 +553,15 @@ class _WholeEmulation:
 
     def arm(self, on: bool) -> None:
         pass
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """The whole residual, then ``zero``'s rows (``GradSync``'s face)."""
+        return [self.residual] + (self.zero.state_tensors() if self.zero is not None else [])
+
+    def set_state_tensors(self, tensors) -> None:
+        self.residual = tensors[0]
+        if self.zero is not None:
+            self.zero.set_state_tensors(list(tensors[1:]))
 
     @torch.no_grad()
     def emulate_grads(self) -> None:
@@ -641,6 +688,11 @@ class LMTrainer:
     built and copied in the loop); the batches and their order are the
     same either way.
 
+    ``nan_guard``: the step's non-finite gate and the rollback policy of
+    ``ft/divergence.py`` (``ft_rollback_k`` consecutive flagged steps,
+    drained every ``ft_check_every`` steps, restore the last-good snapshot
+    and scale the LR by ``ft_lr_backoff``); ``ft_guard`` is the guard.
+
     ``checkpoint_dir``: checkpoint every ``save_steps`` steps (0: only at the
     end of ``fit``) there.  ``resume``: a checkpoint file to restore the
     weights, the momentum and the step from; ``fit`` continues at
@@ -661,7 +713,9 @@ class LMTrainer:
                  hb_interval_s: float = 5.0, mfu: bool = False, goodput: bool = False,
                  step_attr: bool = False, preempt=None, chaos=None, prefetch: int = 2,
                  flight_rec: Optional[str] = None, hang_timeout: float = 30.0,
-                 metrics_port: int = 0, alerts: Optional[str] = None):
+                 metrics_port: int = 0, alerts: Optional[str] = None,
+                 nan_guard: bool = False, ft_rollback_k: int = 3, ft_check_every: int = 10,
+                 ft_lr_backoff: float = 0.5):
         self.model = model
         self.mesh = _mesh_of(model, mesh)
         self.is_primary = self.mesh is None or self.mesh.is_primary
@@ -678,7 +732,8 @@ class LMTrainer:
                                           fused_ce_mode=fused_ce_mode,
                                           grad_compress=grad_compress,
                                           zero=zero_lib.resolve_zero(zero), overlap=overlap,
-                                          bucket_mb=bucket_mb, mesh=self.mesh)
+                                          bucket_mb=bucket_mb, mesh=self.mesh,
+                                          guard_nonfinite=nan_guard)
         self.comm = self.step_fn.comm
         mesh_ = self.mesh
         self.ro = TrainObs(
@@ -708,11 +763,21 @@ class LMTrainer:
         self.losses: list = []
         self.checkpoint_dir = checkpoint_dir
         self.save_steps = save_steps
+        # The divergence guard and the last-good snapshot (ft/divergence.py):
+        # the policy over the step's in-step nonfinite flag.
+        self.ft_guard = self._keeper = None
+        if nan_guard:
+            self.ft_guard = DivergenceGuard(rollback_k=ft_rollback_k,
+                                            check_every=ft_check_every,
+                                            lr_backoff=ft_lr_backoff, obs=self.obs)
+            self._keeper = StateKeeper()
         self._start_step = 0
         if resume:
             _, meta = load_checkpoint(resume, model, self.optimizer, comm=self.comm)
             ft = meta["ft"]
             self._start_step = max(int(ft["global_step"]), int(ft["step"]))
+            if self.ft_guard is not None:
+                self.ft_guard.lr_scale = float(ft["lr_scale"])
             if self._eval_fn is not None and float(meta["best_acc1"]) > 0:
                 self.best_ppl = float(meta["best_acc1"])
             print(f"=> resumed {meta['arch']} from '{resume}' at step {self._start_step}",
@@ -729,8 +794,33 @@ class LMTrainer:
             return
         save_checkpoint(self.checkpoint_dir, self.model, self.optimizer, completed, 0,
                         "transformer_lm", self.best_ppl if self._eval_fn is not None else 0.0,
-                        is_best=is_best, ft={"step": completed, "global_step": completed},
-                        **trees)
+                        is_best=is_best, ft=self._ft_record(completed), **trees)
+
+    def _ft_record(self, completed: int) -> dict:
+        """The resume record: step == global step (epochless), and the
+        guard's LR scale."""
+        return {"step": int(completed), "global_step": int(completed),
+                "lr_scale": self.ft_guard.lr_scale if self.ft_guard is not None else 1.0}
+
+    def _snapshot(self, completed: int) -> None:
+        """Refresh the last-good snapshot (every rank, at the same step)."""
+        self._keeper.update(self.model, self.optimizer, completed, comm=self.comm,
+                            step_fn=self.step_fn)
+
+    def _rollback(self, step: int) -> None:
+        """Divergence recovery: restore the last-good snapshot in place and
+        back off the LR scale (the ``rollback`` ft_event); the flight ring
+        is dumped as ``rollback``."""
+        restored_step = None
+        if self._keeper is not None and self._keeper.has_snapshot:
+            self._keeper.restore(self.model, self.optimizer, comm=self.comm,
+                                 step_fn=self.step_fn)
+            restored_step = self._keeper.step
+        scale = self.ft_guard.note_rollback(step, restored_step)
+        print(f"=> divergence rollback at step {step}: restored state from "
+              f"step {restored_step}, lr scale now {scale:g}", flush=True)
+        if self.ro.flight is not None:
+            self.ro.flight.dump("rollback")
 
     def _checkpoint_trees(self) -> Dict[str, Optional[dict]]:
         """The JAX-layout trees this run saves beyond the model's own: the
@@ -843,6 +933,9 @@ class LMTrainer:
         tokens_per_step = self.batch_size * self.dataset.seq_len
         ro, chaos = self.ro, self.chaos
         token_iter = self._token_iter(start, steps)
+        guard = self.ft_guard
+        if self._keeper is not None and not self._keeper.has_snapshot:
+            self._snapshot(start)   # the initial last-good state (every rank)
         ro.arm(getattr(self.preempt, "_signals", None) or (signal.SIGTERM,))
         try:
             meters.restart_clock()
@@ -864,6 +957,8 @@ class LMTrainer:
                     if chaos is not None:
                         tokens = chaos.on_batch(i, tokens)
                 lr = self.lr_schedule(i) if self.lr_schedule is not None else self.lr
+                if guard is not None:
+                    lr = lr * guard.lr_scale
                 ro.step_begin(i)
                 if chaos is not None:
                     chaos.on_collective(self, i)
@@ -877,10 +972,27 @@ class LMTrainer:
                 self.losses.append(metrics["loss"])
                 ro.log_step(i, dt, tokens_per_step, lr, dict(metrics))
                 meters.maybe_display(i, print_freq)
-                if (self.checkpoint_dir and self.save_steps > 0
-                        and completed % self.save_steps == 0):
-                    self._save_checkpoint(completed)
-                    meters.restart_clock()  # exclude checkpoint I/O from the meter
+                at_save = self.save_steps > 0 and completed % self.save_steps == 0
+                if guard is not None:
+                    # The flags buffer unconverted and drain every
+                    # check_every steps, and at a save boundary, so a
+                    # snapshot never races an undetected divergence.  The
+                    # flag is reduced in the step: every rank drains the
+                    # same verdict.
+                    rollback = guard.observe(i, metrics.get("nonfinite"))
+                    if at_save:
+                        rollback = guard.drain() or rollback
+                    if rollback:
+                        self._rollback(i)
+                    # A flagged streak means the state is suspect: no
+                    # snapshot or checkpoint of it.
+                    at_save = at_save and guard.consecutive == 0
+                if at_save:
+                    if self._keeper is not None:
+                        self._snapshot(completed)
+                    if self.checkpoint_dir:
+                        self._save_checkpoint(completed)
+                        meters.restart_clock()  # exclude checkpoint I/O from the meter
                 if (self._eval_fn is not None and self.eval_every > 0
                         and (i + 1) % self.eval_every == 0):
                     _, final_ppl, _ = self.evaluate()
@@ -888,6 +1000,10 @@ class LMTrainer:
                     meters.restart_clock()  # eval must not pollute the meter
                 else:
                     final_ppl = None
+            if guard is not None and guard.drain():
+                # Flags buffered past the last drain resolve before the
+                # final checkpoint can capture a diverged state.
+                self._rollback(completed)
         except BaseException as e:
             ro.dump_exception(e, completed)
             raise

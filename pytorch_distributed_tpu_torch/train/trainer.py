@@ -56,10 +56,15 @@ chains to the guard), on any exception (re-raised) and from the
 and ``--alerts`` books firings as ``alert`` events.  ``chaos=`` takes the
 ``ft/chaos.py`` hooks where the JAX trainer calls them.
 
+The divergence guard (``--nan-guard``, ``--ft-rollback-k``,
+``--ft-check-every``, ``--ft-lr-backoff``; ``ft/divergence.py``), as in the
+JAX trainer: the step gates a non-finite update on the device, every
+flagged step is a ``skip`` event, and K consecutive ones restore the
+last-good host snapshot (taken at the start and at every checkpoint) with
+the LR scaled by the backoff, which checkpoints carry as ``lr_scale``.
+
 Not ported yet, each exiting from ``train/config.py`` with its ROADMAP item:
-the divergence rollback policy and elastic membership (A11), and the
-ledgers and the recompile watch (A12).  ``--nan-guard`` is ported as the
-in-step gate.
+elastic membership (A11), and the ledgers and the recompile watch (A12).
 """
 
 from __future__ import annotations
@@ -83,6 +88,7 @@ from pytorch_distributed_tpu_torch.data import (
 )
 from pytorch_distributed_tpu_torch.data.native import jpeg_native_available
 from pytorch_distributed_tpu_torch.data.native.binding import searched
+from pytorch_distributed_tpu_torch.ft.divergence import DivergenceGuard, StateKeeper
 from pytorch_distributed_tpu_torch.data.transforms import (
     eval_transform,
     eval_transform_u8,
@@ -187,6 +193,14 @@ class Trainer:
                            metrics_port=cfg.metrics_port, alerts=cfg.alerts)
         self.obs = self.ro.obs     # the hub: the epoch CSV is its epoch sink
         self.obs.register(self.csv)
+        # The divergence guard and the last-good snapshot (ft/divergence.py):
+        # the policy over the step's in-step nonfinite flag.
+        self.ft_guard = self._keeper = None
+        if cfg.nan_guard:
+            self.ft_guard = DivergenceGuard(rollback_k=cfg.ft_rollback_k,
+                                            check_every=cfg.ft_check_every,
+                                            lr_backoff=cfg.ft_lr_backoff, obs=self.obs)
+            self._keeper = StateKeeper()
         self.step_times: list = []
         self.losses: list = []
         self.eval_history: list = []
@@ -208,6 +222,8 @@ class Trainer:
         ft = meta["ft"]
         self._resume_step = int(ft["step"])
         self.global_step = int(ft["global_step"])
+        if self.ft_guard is not None:
+            self.ft_guard.lr_scale = float(ft["lr_scale"])
         self.train_step.count = self.global_step  # the dropout masks' step
         if self._resume_step > 0 and int(ft["sampler_seed"]) != self.seed:
             warnings.warn(
@@ -241,7 +257,28 @@ class Trainer:
     def _ft_record(self, epoch: int, step_in_epoch: int) -> dict:
         return {"step": int(step_in_epoch), "global_step": int(self.global_step),
                 "sampler_seed": int(self.train_sampler.seed), "sampler_epoch": int(epoch),
-                "lr_scale": 1.0}
+                "lr_scale": self.ft_guard.lr_scale if self.ft_guard is not None else 1.0}
+
+    def _snapshot(self) -> None:
+        """Refresh the last-good snapshot (every rank, at the same step)."""
+        self._keeper.update(self.model, self.optimizer, self.global_step, comm=self.comm,
+                            step_fn=self.train_step)
+
+    def _rollback(self, epoch: int, step_in_epoch: int) -> float:
+        """Divergence recovery: restore the last-good snapshot in place and
+        back off the LR scale (the ``rollback`` ft_event; the flight ring is
+        dumped as ``rollback``).  Returns the new scale."""
+        restored = None
+        if self._keeper is not None and self._keeper.has_snapshot:
+            self._keeper.restore(self.model, self.optimizer, comm=self.comm,
+                                 step_fn=self.train_step)
+            restored = self._keeper.step
+        scale = self.ft_guard.note_rollback(self.global_step, restored)
+        self.log(f"=> divergence rollback at epoch {epoch} step {step_in_epoch}: restored "
+                 f"state from global step {restored}, lr scale now {scale:g}")
+        if self.ro.flight is not None:
+            self.ro.flight.dump("rollback")
+        return scale
 
     def save(self, epoch: int, step_in_epoch: int = 0, is_best: bool = False
              ) -> Optional[str]:
@@ -263,6 +300,8 @@ class Trainer:
         if self.ctx.group is not None:
             dist.barrier(group=self.ctx.group)
         self.ro.checkpoint(self.global_step, epoch=epoch, step_in_epoch=step_in_epoch)
+        if self._keeper is not None:
+            self._snapshot()
         return path
 
     def _preempt_agreed(self) -> bool:
@@ -344,6 +383,8 @@ class Trainer:
         returns the number of steps of the epoch complete.  ``profiler``
         (``fit``'s) opens and closes its step window."""
         lr = self.epoch_lr(epoch)
+        guard = self.ft_guard
+        scale = guard.lr_scale if guard is not None else 1.0
         meters = StepMeters(len(self.train_loader),
                             [("loss", "Loss", ":.4e"), ("acc1", "Acc@1", ":6.2f"),
                              ("acc5", "Acc@5", ":6.2f")], prefix=f"Epoch: [{epoch}]")
@@ -353,6 +394,8 @@ class Trainer:
         completed = start_step
         if stop_after is not None and stop_after <= start_step:
             return completed
+        if self._keeper is not None and not self._keeper.has_snapshot:
+            self._snapshot()   # the initial last-good state (every rank)
         meters.restart_clock()
         batches = self.feeder(self.train_loader.iter_batches(start_step))
         ro, n, chaos = self.ro, self.cfg.batch_size, self.chaos
@@ -379,7 +422,7 @@ class Trainer:
             if chaos is not None:
                 chaos.on_collective(self, self.global_step)
             with scope("train_step"), ro.device_window():
-                metrics = self.train_step(batch, lr)
+                metrics = self.train_step(batch, lr * scale)
             ro.step_end(self.global_step)
             with ro.host_sync():
                 dt = meters.update(metrics, n)
@@ -390,11 +433,29 @@ class Trainer:
                 meters.maybe_display(i, self.cfg.print_freq)
             self.global_step += 1
             completed = i + 1
-            if save_steps > 0 and completed % save_steps == 0 and completed < epoch_len:
+            at_save = save_steps > 0 and completed % save_steps == 0 and completed < epoch_len
+            if guard is not None:
+                # The flags buffer unconverted and drain every
+                # --ft-check-every steps, and at a save boundary, so a
+                # snapshot never races an undetected divergence.  The flag
+                # is reduced in the step: every rank drains the same verdict.
+                rollback = guard.observe(self.global_step - 1, metrics.get("nonfinite"))
+                if at_save:
+                    rollback = guard.drain() or rollback
+                if rollback:
+                    scale = self._rollback(epoch, i)
+                # A flagged streak means the state is suspect: no snapshot or
+                # checkpoint of it.
+                at_save = at_save and guard.consecutive == 0
+            if at_save:
                 self.save(epoch, completed)
                 meters.restart_clock()  # exclude checkpoint I/O from the meter
             if completed == stop_after:
                 break
+        if guard is not None and guard.drain():
+            # Flags buffered past the last drain resolve before the epoch's
+            # checkpoint can capture a diverged state.
+            self._rollback(epoch, completed)
         return completed
 
     @torch.no_grad()

@@ -59,8 +59,12 @@ from pytorch_distributed_tpu_torch.utils.convert import (
     resnet_state_dict_from_jax,
     resnet_variables_to_jax,
 )
+from tests.test_torch_zoo import jitted_flax_init  # noqa: F401  (fixture)
 
 LM = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=1)
+# The JAX recipes' own init is replaced by the weights under test, so it may
+# be compiled as one program.
+pytestmark = pytest.mark.usefixtures("jitted_flax_init")
 RES = dict(stage_sizes=[1, 1], num_classes=7, num_filters=16)
 
 

@@ -32,9 +32,13 @@ from pytorch_distributed_tpu_torch.recipes import tpu_native
 from pytorch_distributed_tpu_torch.train.config import parse_config
 from pytorch_distributed_tpu_torch.train.trainer import Trainer
 from pytorch_distributed_tpu_torch.utils.convert import resnet_state_dict_from_jax
+from tests.test_torch_zoo import jitted_flax_init  # noqa: F401  (fixture)
 
 LR, WD = 0.1, 1e-4
 WIRES = ("f32", "u8host", "u8", "native")
+# The JAX trainers' weights are copied into the port, so their init may be
+# compiled as one program.
+pytestmark = pytest.mark.usefixtures("jitted_flax_init")
 
 
 @pytest.fixture(autouse=True, scope="module")

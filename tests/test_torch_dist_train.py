@@ -76,6 +76,8 @@ from pytorch_distributed_tpu_torch.train.steps import make_train_step
 from pytorch_distributed_tpu_torch.utils.convert import resnet_state_dict_from_jax
 from tests.test_torch_zoo import FAST_COMPILE
 
+QUANTIZED_COMPILE = {"xla_llvm_disable_expensive_passes": True}
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(stage_sizes=[1, 1], num_classes=7, num_filters=16)
 LRS = (0.1, 0.05, 0.02)
@@ -218,10 +220,13 @@ def _jax_run(variables, batches, fused, accum=2, sync_bn=False, zero="none",
     metrics = []
     for b, rate in zip(batches, LRS):
         b = {k: jnp.asarray(x) for k, x in b.items()}
-        if not metrics and mode not in ("int8", "fp8"):
-            # The quantized steps keep XLA's default compile: which element
-            # sits at a rounding boundary depends on how XLA fuses them.
-            jstep = jstep.lower(state, b, jnp.float32(rate)).compile(FAST_COMPILE)
+        if not metrics:
+            # The quantized steps keep XLA's HLO passes: which element sits
+            # at a rounding boundary depends on how XLA fuses them.  Only
+            # LLVM's expensive passes go, which leaves every number of
+            # these cases bitwise as the default compile gives it.
+            jstep = jstep.lower(state, b, jnp.float32(rate)).compile(
+                QUANTIZED_COMPILE if mode in ("int8", "fp8") else FAST_COMPILE)
         state, m = jstep(state, b, jnp.float32(rate))
         metrics.append({k: float(x) for k, x in m.items()})
         if len(metrics) == 1:

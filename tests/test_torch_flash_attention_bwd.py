@@ -32,6 +32,7 @@ from pytorch_distributed_tpu_torch.ops.flash_attention import (
     flash_attention_fn,
     flash_attention_reference,
 )
+from tests.test_torch_zoo import FAST_COMPILE
 
 
 def _inputs(B=2, L=128, H=2, D=32, seed=0):
@@ -50,8 +51,13 @@ def _jax_grads(q, k, v, g, causal, dtype=jnp.float32):
     def f(q, k, v):
         return jax_flash(q, k, v, causal, 32, 32, True, "pallas")
 
-    _, vjp = jax.vjp(f, *(jnp.asarray(x, dtype) for x in (q, k, v)))
-    return vjp(jnp.asarray(g, dtype))
+    def grads(q, k, v, g):
+        return jax.vjp(f, q, k, v)[1](g)
+
+    # One program (FAST_COMPILE) rather than op by op: the same arithmetic,
+    # compiled once instead of every op of the interpreted kernels.
+    args = tuple(jnp.asarray(x, dtype) for x in (q, k, v, g))
+    return jax.jit(grads).lower(*args).compile(FAST_COMPILE)(*args)
 
 
 @pytest.mark.parametrize("causal", [True, False])

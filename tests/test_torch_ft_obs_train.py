@@ -39,7 +39,7 @@ from pytorch_distributed_tpu.train import lm as jax_lm
 from pytorch_distributed_tpu.train.config import parse_config as jax_parse_config
 from pytorch_distributed_tpu.train.trainer import Trainer as JaxTrainer
 from pytorch_distributed_tpu.utils import preempt as jpreempt
-from pytorch_distributed_tpu_torch.ft import chaos
+from pytorch_distributed_tpu_torch.ft import chaos, divergence
 from pytorch_distributed_tpu_torch.ft.integrity import CheckpointCorruptError
 from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
 from pytorch_distributed_tpu_torch.obs import export, flightrec, metrics
@@ -51,8 +51,12 @@ from pytorch_distributed_tpu_torch.train.trainer import Trainer
 from pytorch_distributed_tpu_torch.utils.convert import (lm_state_dict_from_jax,
                                                           resnet_state_dict_from_jax)
 from pytorch_distributed_tpu_torch.utils.preempt import PreemptionGuard
+from tests.test_torch_zoo import jitted_flax_init  # noqa: F401  (fixture)
 
 LM = dict(vocab_size=32, d_model=32, n_heads=2, n_layers=1)
+# The JAX trainers' weights are copied into the port, so their init may be
+# compiled as one program.
+pytestmark = pytest.mark.usefixtures("jitted_flax_init")
 STEPS, SIGNAL_AT = 8, 2
 
 
@@ -295,3 +299,79 @@ def test_recipes_run_healthy_with_the_flags(tmp_path, recipe):
     assert export.sample_value(samples, "ptd_metric", rank=0, field="loss") == \
         float(f"{last['loss']:g}")
     assert export.sample_value(samples, "ptd_alert_firing") is None
+
+
+class _StateWatch(chaos.ChaosInjector):
+    """Copies the train state just before each step (the ``on_collective``
+    hook), so a test can tell whether a step moved it."""
+
+    def __init__(self):
+        self.before = {}
+
+    def on_collective(self, trainer, step):
+        self.before[step] = [t.detach().clone() if t is not None else None for t in
+                             divergence._state_tensors(trainer.model, trainer.optimizer,
+                                                       trainer.comm)]
+
+
+def test_image_gate_and_rollback_follow_the_jax_trainer(tmp_path):
+    """The divergence guard on both image trainers from the same weights:
+    ``NaNBatchAt`` poisons step 1 alone (a skip) and steps 3 and 4 (two in a
+    row: with K 2 and a save every 2 steps, the drain at the boundary after
+    step 5 rolls back to the start, the last boundary whose flags were
+    clean).  The same skipped steps, rollback, restored step, LR scale and
+    ``ft_event`` records; each poisoned step left the port's weights,
+    momentum and BN statistics bitwise as they were, and the rollback
+    restored the initial weights bitwise; losses and final state (two
+    steps at half the LR after it) within the 3-image-step row (f32).  At
+    lr 0.01: at the fixture's 0.1 this net (BatchNorm over 4 images of 16
+    px) is chaotic, and its third step's loss moves 1.6e-4 between the
+    packages (3.9e-6 at the second)."""
+    guard = ["--lr", "0.01", "--nan-guard", "--ft-rollback-k", "2", "--ft-check-every", "3", "--save-steps",
+             "2", "--synthetic-length", "32", "--epoch-csv", str(tmp_path / "e.csv")]
+    poison = (1, 3, 4)
+    jargv = [a for a in TINY_IMG if a not in ("--device", "cpu")] + guard + [
+        "--checkpoint-dir", str(tmp_path / "jax"), "--metrics-jsonl", str(tmp_path / "jax.jsonl")]
+    jt = JaxTrainer(jax_parse_config(jargv), mesh=build_mesh(MeshSpec(("data",), (1,)),
+                                                              jax.devices()[:1]),
+                    chaos=jchaos.ChaosSchedule(jchaos.NaNBatchAt(poison, keys=("images",))))
+    init = resnet_state_dict_from_jax(*jax.device_get((jt.state.params, jt.state.batch_stats)))
+    jt.fit()
+    watch = _StateWatch()
+    t = Trainer(parse_config(TINY_IMG + guard + ["--checkpoint-dir", str(tmp_path / "port"),
+                                                 "--metrics-jsonl", str(tmp_path / "m.jsonl")]),
+                chaos=chaos.ChaosSchedule(chaos.NaNBatchAt(poison, keys=("images",)), watch))
+    t.model.load_state_dict(init)
+    t.fit()
+    g, j = t.ft_guard, jt.ft_guard
+    assert (g.skipped, g.rollbacks, g.lr_scale, g.consecutive) == \
+        (j.skipped, j.rollbacks, j.lr_scale, j.consecutive) == ([1, 3, 4], 1, 0.5, 0)
+    assert t._keeper.step == jt._keeper.step == 8   # refreshed at the epoch-end save
+    n = len(list(t.model.parameters())) + len(list(t.model.buffers()))
+    assert all(torch.equal(a, b) for a, b in zip(watch.before[6][:n], watch.before[0][:n]))
+    assert all(m is None or not m.any() for m in watch.before[6][n:])
+    for s in (1, 3, 4):
+        for a, b in zip(watch.before[s], watch.before[s + 1]):
+            assert a is None or torch.equal(a, b)
+    got, want = metrics.read_metrics(str(tmp_path / "m.jsonl")), \
+        jmetrics.read_metrics(str(tmp_path / "jax.jsonl"))
+    events = [[{k: v for k, v in r.items() if k != "t"} for r in recs if "ft_event" in r]
+              for recs in (got, want)]
+    assert events[0] == events[1]
+    assert [e["ft_event"] for e in events[0]] == ["skip", "skip", "skip", "rollback"]
+    rows = [[r for r in recs if "ft_event" not in r] for recs in (got, want)]
+    assert [r["nonfinite"] for r in rows[0]] == [r["nonfinite"] for r in rows[1]] == \
+        [float(s in poison) for s in range(8)]
+    np.testing.assert_allclose([r["loss"] for r in rows[0]], [r["loss"] for r in rows[1]],
+                               rtol=1e-4)
+    want_state = resnet_state_dict_from_jax(*jax.device_get((jt.state.params,
+                                                             jt.state.batch_stats)))
+    for name, a in t.model.state_dict().items():
+        if name in want_state:
+            np.testing.assert_allclose(a.numpy(), want_state[name].numpy(), rtol=1e-3,
+                                       atol=1e-4, err_msg=name)
+    # The JAX trainer's epoch-end file carries its scale into the port's guard.
+    resumed = Trainer(parse_config(TINY_IMG + guard + [
+        "--checkpoint-dir", str(tmp_path / "r"),
+        "--resume", os.path.join(tmp_path, "jax", ckpt.CHECKPOINT_NAME)]))
+    assert resumed.ft_guard.lr_scale == 0.5

@@ -31,6 +31,7 @@ import torch
 
 from pytorch_distributed_tpu.ops import fused_conv_bn as jfc
 from pytorch_distributed_tpu_torch.ops import fused_conv_bn as tfc
+from tests.test_torch_zoo import FAST_COMPILE
 
 EPS = 1e-5
 
@@ -58,7 +59,11 @@ def _grads_both(ks, a, w, gamma, beta, cot, relu, jdt, tdt):
         return jnp.sum(o.astype(jnp.float32) * cot)
 
     ja = jnp.asarray(a, jdt)
-    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(ja, jnp.asarray(w), gamma, beta)
+    # One program (FAST_COMPILE) rather than op by op: the same f32
+    # arithmetic, and each case compiles once instead of every op of it.
+    args = (ja, jnp.asarray(w), jnp.asarray(gamma), jnp.asarray(beta))
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3))).lower(*args).compile(
+        FAST_COMPILE)(*args)
     ta = torch.tensor(np.asarray(ja.astype(jnp.float32))).to(tdt).requires_grad_()
     tw = _hwio_to_oihw(w).requires_grad_()
     tg = torch.tensor(gamma, requires_grad=True)

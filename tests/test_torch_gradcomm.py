@@ -67,9 +67,13 @@ from pytorch_distributed_tpu_torch.utils.convert import (
     resnet_state_dict_from_jax,
     resnet_variables_to_jax,
 )
+from tests.test_torch_zoo import jitted_flax_init  # noqa: F401  (fixture)
 
 RES = dict(stage_sizes=[1, 1], num_classes=7, num_filters=16)
 LM = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2)
+# The JAX trainers' weights are copied into the port (or replaced), so their
+# init may be compiled as one program.
+pytestmark = pytest.mark.usefixtures("jitted_flax_init")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -231,8 +231,6 @@ def test_recipe_trains_on_cpu(tmp_path, capsys):
     (["--rescale-lr", "linear"], "ROADMAP.md item A11"), (["--elastic"], "ROADMAP.md item A11"),
     (["--ckpt-backend", "orbax"], "orbax.checkpoint imports JAX"),
     (["--lowering-cache", "lc"], "ROADMAP.md item A12"),
-    (["--ft-rollback-k", "5"], "ROADMAP.md item A11"),
-    (["--ft-check-every", "5"], "ROADMAP.md item A11"),
     (["--watch-recompiles"], "ROADMAP.md item A12"),
     (["--comm-ledger", "c.json"], "ROADMAP.md item A12")])
 def test_unported_flags_exit_naming_their_item(flag, reason):
@@ -243,6 +241,23 @@ def test_unported_flags_exit_naming_their_item(flag, reason):
     # package's ImageFolder error.
     with pytest.raises(FileNotFoundError, match="ImageNet2012/train"):
         tpu_native.main([a for a in TINY_ARGS if a != "--synthetic"])
+
+
+@pytest.mark.parametrize("flag,attr", [(["--ft-rollback-k", "5"], "rollback_k"),
+                                       (["--ft-check-every", "5"], "check_every")])
+def test_ft_flags_run_and_are_logged(tmp_path, flag, attr):
+    """The divergence guard's knobs are ported: with ``--nan-guard`` they
+    reach the guard, and every step's record carries its ``nonfinite``
+    flag (0 here: f32, no poisoned batch)."""
+    from pytorch_distributed_tpu_torch.obs import metrics
+
+    path = str(tmp_path / "m.jsonl")
+    trainer = tpu_native.run(TINY_ARGS + ["--precision", "fp32", "--nan-guard", "--metrics-jsonl",
+                                          path, "--epoch-csv", str(tmp_path / "e.csv"),
+                                          "--checkpoint-dir", str(tmp_path)] + flag)
+    assert getattr(trainer.ft_guard, attr) == 5 and trainer.ft_guard.skipped == []
+    rows = [r for r in metrics.read_metrics(path) if "ft_event" not in r]
+    assert [r["nonfinite"] for r in rows] == [0.0] * len(trainer.losses) == [0.0, 0.0]
 
 
 def test_sync_bn_and_fused_ce_without_a_group_change_nothing(tmp_path):

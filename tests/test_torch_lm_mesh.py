@@ -101,7 +101,7 @@ from pytorch_distributed_tpu_torch.parallel.fsdp import apply_fsdp
 from pytorch_distributed_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from pytorch_distributed_tpu_torch.recipes import lm_generate, lm_pretrain
 from pytorch_distributed_tpu_torch.train import lm
-from pytorch_distributed_tpu_torch.ft.chaos import ChaosInjector
+from pytorch_distributed_tpu_torch.ft.chaos import ChaosInjector, ChaosSchedule, LRSpikeAt
 from pytorch_distributed_tpu_torch.train.gradsync import momentum_bytes
 from pytorch_distributed_tpu_torch.train.optim import sgd
 from pytorch_distributed_tpu_torch.utils.preempt import PreemptionGuard
@@ -195,6 +195,17 @@ for name, dp, ctx, flags in (("tp2", 1, ctx2, rank % 2 == 1), ("dp2_tp2", 2, ctx
                      chaos=FlagAt1(flags), checkpoint_dir=ck)
     t.fit(6, print_freq=2)
     res[f"preempt_{name}"] = {"steps": len(t.losses), "flagged": t.preempt.triggered}
+
+# The divergence guard at DP 2 on each pair (pair 1 under ZeRO): an LR
+# spike at step 2, K 2, the flags drained every 3 steps, a snapshot every 2.
+mesh, model = model_on(2, 1, ctx2)
+t = lm.LMTrainer(model, ds, inp["batch"], lr=0.05, mesh=mesh, zero="wus" if pair else None,
+                 nan_guard=True, ft_rollback_k=2, ft_check_every=3, save_steps=2, prefetch=0,
+                 chaos=ChaosSchedule(LRSpikeAt(2, 1e30)))
+t.fit(10, print_freq=100)
+res["rollback"] = {"skipped": t.ft_guard.skipped, "rollbacks": t.ft_guard.rollbacks,
+                   "lr_scale": t.ft_guard.lr_scale, "restored": t._keeper.step,
+                   "losses": [float(x) for x in t.losses], "state": model.full_state_dict()}
 
 # tp_generate at TP 2 (ranks 2-3).
 if pair == 1:
@@ -506,6 +517,20 @@ def test_preemption_is_agreed_across_a_model_group(runs, name):
         _, meta = load_checkpoint(str(runs["out"] / d / CHECKPOINT_NAME),
                                   TransformerLM(**CFG, device="cpu"))
         assert (meta["ft"]["step"], meta["ft"]["global_step"]) == (2, 2)
+
+
+@pytest.mark.parametrize("pair", [0, 1], ids=["dp2", "dp2_wus"])
+def test_rollback_is_agreed_across_ranks(runs, pair):
+    """Both ranks drain the same (all-reduced) flags, roll back at the same
+    step to the same snapshot and end with bitwise-equal weights."""
+    a, b = (runs["ranks"][2 * pair + r]["rollback"] for r in (0, 1))
+    assert a["rollbacks"] >= 1 and a["lr_scale"] < 1.0 and a["skipped"]
+    for k in ("skipped", "rollbacks", "lr_scale", "restored"):
+        assert a[k] == b[k], k
+    np.testing.assert_array_equal(a["losses"], b["losses"])
+    assert np.isfinite(a["losses"][-1])
+    for name, w in a["state"].items():
+        assert torch.isfinite(w).all() and torch.equal(w, b["state"][name]), name
 
 
 def test_tp_generate_emits_jax_tokens(runs):

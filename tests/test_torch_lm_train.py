@@ -243,12 +243,25 @@ def test_recipe_trains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--ep", "2"], ["--sp", "2"], ["--remat", "--pp", "2"],
-                                  ["--nan-guard"],
-                                  ["--ft-rollback-k", "5"], ["--elastic"]])
+                                  ["--elastic"]])
 def test_unported_flags_exit_nonzero(flag):
     with pytest.raises(SystemExit) as exc:
         lm_pretrain.main(TINY + flag)
     assert "ROADMAP.md item A" in str(exc.value.code)
+
+
+@pytest.mark.parametrize("flag", [["--nan-guard"], ["--nan-guard", "--ft-rollback-k", "5"]])
+def test_nan_guard_flags_run_and_are_logged(tmp_path, flag):
+    """``--nan-guard`` and its knobs are ported: the guard is built with
+    them, and every step's record carries its ``nonfinite`` flag."""
+    from pytorch_distributed_tpu_torch.obs import metrics
+
+    path = str(tmp_path / "m.jsonl")
+    trainer = lm_pretrain.run(TINY + ["--no-eval", "--metrics-jsonl", path] + flag)
+    assert trainer.ft_guard.rollback_k == (5 if "--ft-rollback-k" in flag else 3)
+    assert trainer.ft_guard.skipped == [] and trainer.ft_guard.lr_scale == 1.0
+    rows = [r for r in metrics.read_metrics(path) if "ft_event" not in r]
+    assert [r["nonfinite"] for r in rows] == [0.0] * 4
 
 
 @pytest.mark.parametrize("flag,message", [

@@ -36,9 +36,13 @@ from pytorch_distributed_tpu_torch.obs import goodput, heartbeat, metrics, stepa
 from pytorch_distributed_tpu_torch.recipes import lm_pretrain, tpu_native
 from pytorch_distributed_tpu_torch.train import lm
 from pytorch_distributed_tpu_torch.utils.convert import lm_state_dict_from_jax
+from tests.test_torch_zoo import jitted_flax_init  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LM = dict(vocab_size=32, d_model=32, n_heads=2, n_layers=1)
+# The JAX trainers' weights are copied into the port (or replaced), so their
+# init may be compiled as one program.
+pytestmark = pytest.mark.usefixtures("jitted_flax_init")
 TIMING = {"t", "step_time", "step_time_ema", "step_time_p50", "step_time_p95",
           "step_time_max", "throughput", "mfu", "hfu", "model_tflops", "data_wait_share"}
 

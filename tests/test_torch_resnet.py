@@ -22,6 +22,7 @@ from pytorch_distributed_tpu.utils.torch_import import import_resnet_state_dict
 from pytorch_distributed_tpu_torch import models
 from pytorch_distributed_tpu_torch.models import resnet as tr
 from pytorch_distributed_tpu_torch.utils.convert import resnet_state_dict_from_jax
+from tests.test_torch_zoo import FAST_COMPILE
 
 BLOCKS = {"bottleneck": (jr.Bottleneck, tr.Bottleneck), "basic": (jr.BasicBlock, tr.BasicBlock)}
 TINY = dict(stage_sizes=[1, 1], num_classes=7, num_filters=16)
@@ -66,8 +67,8 @@ def test_train_forward_backward_match_jax(block, stem, fused):
         lp = jax.nn.log_softmax(logits)
         return -jnp.mean(lp[jnp.arange(4), labels]), (logits, mut["batch_stats"])
 
-    (_, (jlogits, jstats)), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-        v["params"])
+    (_, (jlogits, jstats)), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True)).lower(
+        v["params"]).compile(FAST_COMPILE)(v["params"])
 
     tm = _port_model(block, stem, fused)
     tm.load_state_dict(resnet_state_dict_from_jax(v["params"], v["batch_stats"]))

@@ -42,9 +42,13 @@ from pytorch_distributed_tpu.train.state import TrainState
 from pytorch_distributed_tpu_torch.models import speculative as ps
 from pytorch_distributed_tpu_torch.recipes import lm_generate
 from pytorch_distributed_tpu_torch.utils.convert import lm_state_dict_from_jax
+from tests.test_torch_zoo import jitted_flax_init  # noqa: F401  (fixture)
 
 TARGET = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2)
 DRAFT = dict(vocab_size=64, d_model=16, n_heads=2, n_layers=1)
+# The JAX recipes' own init is replaced by the weights under test, so it may
+# be compiled as one program.
+pytestmark = pytest.mark.usefixtures("jitted_flax_init")
 
 
 @pytest.fixture(autouse=True, scope="module")
